@@ -1,0 +1,60 @@
+"""genomicbreedingmodels_tpu_torch — PyTorch/CUDA port of genomicbreedingmodels_tpu.
+
+The port lives beside the JAX package, which stays the reference it is held
+against, and keeps its file and function names so each counterpart is found
+by path. It imports torch and numpy, never jax and never the JAX package.
+
+Covered so far: the GBLUP main path — data layer, simulators, GRM (exact int8
+dosage Gram K1 and f32/bf16 Gram K2, hand-written CUDA kernels for Hopper),
+the lower-triangle GBLUP solve, REML variance components, `gblup`, `predict`
+and `metrics`. Every public entry point takes `device=` (default "cuda");
+`device="cpu"` runs the kernels' plain PyTorch versions.
+"""
+
+from .core.structs import (
+    Fit,
+    Genomes,
+    Phenomes,
+    SimulatedEffects,
+    Trials,
+    checkdims,
+    clone,
+    slice_genomes,
+    slice_phenomes,
+)
+from .core.simulation import extract_phenomes, simulate_genomes, simulate_trials
+from .core.grm import grm_ploidy_aware, grm_simple, infer_ploidy
+from .ops.metrics import metrics
+from .prediction import extractxyetc, mean_impute, predict
+from .models.gwas import loglikreml
+from .models.gblup import gblup, reml_variance_components
+from .kernels.gram_tri import LAUNCHES, reset_launches
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Fit",
+    "Genomes",
+    "Phenomes",
+    "SimulatedEffects",
+    "Trials",
+    "checkdims",
+    "clone",
+    "slice_genomes",
+    "slice_phenomes",
+    "simulate_genomes",
+    "simulate_trials",
+    "extract_phenomes",
+    "grm_simple",
+    "grm_ploidy_aware",
+    "infer_ploidy",
+    "metrics",
+    "extractxyetc",
+    "mean_impute",
+    "predict",
+    "gblup",
+    "reml_variance_components",
+    "loglikreml",
+    "LAUNCHES",
+    "reset_launches",
+]
