@@ -7,9 +7,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    nvcc, whether triton imports;
 2. builds the port's kernels from `genomicbreedingmodels_tpu_torch/csrc`;
 3. K1 (`gram_tri_int8`) against its plain version: bit-equal, strict upper
-   triangle zero, exactly symmetric once mirrored;
+   triangle zero, exactly symmetric once mirrored; on random dosages and on
+   the called panel's own training dosages that phase 6's `gblup` uses;
 4. K2 (`gram_tri_float`, f32 and bf16) against its plain version (a float64
-   product): max |err| <= 1e-5 · max|G|;
+   product): max |err| <= 1e-5 · max|G|; on random panels and on phase 6's
+   continuous training panel;
 5. the headline step at n=8192, p=262144 int8: `gram_dosage_lower` (K1) then
    `gblup_solve_lower`, checked against the plain-version path on the card
    and timed against it;
@@ -97,7 +99,11 @@ def main() -> int:
         gram_tri_int8_plain,
     )
     from genomicbreedingmodels_tpu_torch.ops.chol import gblup_solve_lower
-    from genomicbreedingmodels_tpu_torch.ops.grm import _center_gram_lower, gram_dosage_lower
+    from genomicbreedingmodels_tpu_torch.ops.grm import (
+        _center_gram_lower,
+        encode_dosage,
+        gram_dosage_lower,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -137,9 +143,40 @@ def main() -> int:
     gen.manual_seed(0)
     records = {}
 
+    # Phase 6's panels, simulated up front so phases 3-4 can check K1 and K2
+    # on the very training panels `gblup` hands them.
+    t0 = time.perf_counter()
+    genomes = gbm.simulate_genomes(n=2048, l=16_384, seed=42)
+    trials, _ = gbm.simulate_trials(genomes, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=42)
+    phenomes = gbm.extract_phenomes(trials)
+    print(f"simulate 2048 x 16384: {time.perf_counter() - t0:.2f} s (host)")
+    perm = np.random.default_rng(7).permutation(genomes.n)
+    test, train = np.sort(perm[: genomes.n // 10]), np.sort(perm[genomes.n // 10 :])
+    n_train = len(train)
+    called = gbm.Genomes(
+        entries=genomes.entries, populations=genomes.populations,
+        loci_alleles=genomes.loci_alleles,
+        allele_frequencies=np.rint(2.0 * genomes.allele_frequencies) / 2.0,
+    )
+
+    def train_panel(g):
+        return gbm.extractxyetc(g, phenomes, idx_entries=train, add_intercept=False)[0]
+
+    # What gblup's GRM hands K1 and K2 (core/grm.py -> ops/grm.py).
+    D_called = encode_dosage(train_panel(called), ploidy=2)
+    check(D_called is not None, "the called panel encodes as int8 dosages")
+    X_cont = train_panel(genomes).astype(np.float32)
+
     # -- 3. K1 against its plain version --------------------------------------
-    for n, p in [(64, 512), (129, 257), (1000, 4099), (N_HEAD, P_HEAD)]:
-        D = torch.randint(0, 3, (n, p), dtype=torch.int8, device=dev, generator=gen)
+    k1_inputs = [(64, 512), (129, 257), (1000, 4099), (n_train, 16_384),
+                 "gblup called panel", (N_HEAD, P_HEAD)]
+    for what in k1_inputs:
+        if what == "gblup called panel":
+            D = torch.from_numpy(D_called).to(dev)
+        else:
+            D = torch.randint(0, 3, what, dtype=torch.int8, device=dev, generator=gen)
+        n, p = D.shape
+        label = f"{n}x{p}" + (f" ({what})" if isinstance(what, str) else "")
         K = gram_tri_int8(D, 2)
         R = gram_tri_int8_plain(D, 2)
         torch.cuda.synchronize()
@@ -148,9 +185,9 @@ def main() -> int:
         upper0 = int(torch.triu(K, 1).abs().max()) == 0
         sym = torch.equal(M, M.T)
         err = int((K - R).abs().max())
-        print(f"K1 {n}x{p}: equal={equal} strict_upper_zero={upper0} "
+        print(f"K1 {label}: equal={equal} strict_upper_zero={upper0} "
               f"mirrored_symmetric={sym} max_abs_err={err}")
-        check(equal and upper0 and sym, f"K1 at {n}x{p}")
+        check(equal and upper0 and sym, f"K1 at {label}")
         if (n, p) == (N_HEAD, P_HEAD):
             ms = cuda_ms(lambda: gram_tri_int8(D, 2), reps=5)
             plain_ms = cuda_ms(lambda: gram_tri_int8_plain(D, 2), reps=2)
@@ -162,21 +199,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. K2 against its plain version --------------------------------------
-    n_train = 2048 - 2048 // 10  # phase 6 fits on 90% of 2048 entries, 16384 loci
-    k2_shapes = [(129, 257), (256, 2048), (2048, 32768), (n_train, 16_384)]
-    for n, p in k2_shapes:
-        for dt in (torch.float32, torch.bfloat16):
-            X = torch.rand((n, p), device=dev, generator=gen).to(dt)
+    k2_inputs = [(129, 257), (256, 2048), (2048, 32768), (n_train, 16_384),
+                 "gblup continuous panel"]
+    for what in k2_inputs:
+        # gblup hands K2 its continuous panel in float32 only
+        for dt in (torch.float32,) if isinstance(what, str) else (torch.float32, torch.bfloat16):
+            if isinstance(what, str):
+                X = torch.from_numpy(X_cont).to(dev)
+            else:
+                X = torch.rand(what, device=dev, generator=gen).to(dt)
+            n, p = X.shape
+            label = f"{n}x{p} {str(dt)[6:]}" + (f" ({what})" if isinstance(what, str) else "")
             K = gram_tri_float(X)
             R = gram_tri_float_plain(X)
             torch.cuda.synchronize()
             err = float((K - R).abs().max())
             scale = float(R.abs().max())
             upper0 = float(torch.triu(K, 1).abs().max()) == 0.0
-            print(f"K2 {n}x{p} {str(dt)[6:]}: max_abs_err={err:.4g} max|G|={scale:.4g} "
+            print(f"K2 {label}: max_abs_err={err:.4g} max|G|={scale:.4g} "
                   f"rel={err / scale:.3g} strict_upper_zero={upper0}")
-            check(err <= K2_TOL * scale and upper0, f"K2 at {n}x{p} {dt}")
-            if (n, p) in ((n_train, 16_384), (2048, 32768)):
+            check(err <= K2_TOL * scale and upper0, f"K2 at {label}")
+            if not isinstance(what, str) and what in ((n_train, 16_384), (2048, 32768)):
                 ms = cuda_ms(lambda: gram_tri_float(X), reps=10)
                 plain_ms = cuda_ms(lambda: gram_tri_float_plain(X), reps=5)
                 flops = 2.0 * n * n * p / 2
@@ -221,19 +264,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. public API -----------------------------------------------------------
-    t0 = time.perf_counter()
-    genomes = gbm.simulate_genomes(n=2048, l=16_384, seed=42)
-    trials, _ = gbm.simulate_trials(genomes, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=42)
-    phenomes = gbm.extract_phenomes(trials)
-    print(f"simulate 2048 x 16384: {time.perf_counter() - t0:.2f} s (host)")
-    perm = np.random.default_rng(7).permutation(genomes.n)
-    test, train = np.sort(perm[: genomes.n // 10]), np.sort(perm[genomes.n // 10 :])
-    check(len(train) == n_train, "training split matches the K2 timing shape")
-    called = gbm.Genomes(
-        entries=genomes.entries, populations=genomes.populations,
-        loci_alleles=genomes.loci_alleles,
-        allele_frequencies=np.rint(2.0 * genomes.allele_frequencies) / 2.0,
-    )
     y_test = phenomes.phenotypes[test, 0]
     for label, g, kernel in (("continuous", genomes, "gram_tri_float"),
                              ("called", called, "gram_tri_int8")):

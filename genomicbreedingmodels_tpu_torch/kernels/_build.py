@@ -2,7 +2,9 @@
 
 At first use every `csrc/*.cu` is compiled for Hopper (`sm_90a`) into ONE
 shared library with a plain C interface, under `build/gbm_torch_kernels/` at
-the root of the checkout (git-ignored). The file name carries a hash of the
+the root of the checkout (git-ignored) when the package runs from a checkout,
+and under the process's temporary directory (`tempfile.gettempdir()`, which
+honours $TMPDIR) when it is installed. The file name carries a hash of the
 sources and flags, so an edited source triggers a rebuild and an unchanged
 one reuses the library. A missing nvcc or a failed build raises with nvcc's
 own output; nothing falls back to another implementation.
@@ -19,13 +21,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "launch", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gbm_torch_kernels"
+_ROOT = Path(__file__).resolve().parents[2]  # the checkout, when the package sits in one
+BUILD_DIR = (
+    _ROOT / "build" if (_ROOT / "pyproject.toml").is_file() else Path(tempfile.gettempdir())
+) / "gbm_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

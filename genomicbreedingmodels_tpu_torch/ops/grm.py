@@ -170,6 +170,4 @@ def gram_auto(X, ploidy: int = 2, center: bool = True, device="cuda") -> torch.T
         D = encode_dosage(X, ploidy=ploidy)
         if D is not None:
             return gram_dosage(D, ploidy=ploidy, center=center, device=device)
-    elif isinstance(X, torch.Tensor) and X.dtype == torch.int8:
-        return gram_dosage(X, ploidy=ploidy, center=center, device=device)
     return gram_panel(X, center=center, device=device)
