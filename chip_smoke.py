@@ -15,19 +15,38 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 5. the headline step at n=8192, p=262144 int8: `gram_dosage_lower` (K1) then
    `gblup_solve_lower`, checked against the plain-version path on the card
    and timed against it;
+   (K3) K3 (`grouped_block_update`, the grouped Gibbs block update) against
+   its plain version on the same inputs and noise: identical selections,
+   draws within K3_TOL; at bs=600 with K=6 and K=8, at bs=258 with K=6 and the
+   last 5 markers invalid, and timed per block at bs=600 with Cb cold in L2,
+   as the chain finds it;
 6. the public API: simulate -> `gblup` on a continuous panel (K2) and on the
    called panel (K1) -> `predict`, each checked against the same calls with
-   device="cpu" (the plain versions).
+   device="cpu" (the plain versions);
+7. the Bayesian alphabet at size: `gibbs_regression(model="BayesC")` on a
+   device-resident 10,000 x 102,000 dosage panel (BASELINE config 3, as
+   bench.py builds it) with block_size=600 for 60 sweeps, twice (first and
+   warm call): K3 launched once per block and sweep, finite b and sigma_e2,
+   cor(X b, g_true) >= 0.5; marker-updates/s, prep against sweeps, peak memory;
+8. chain-level agreement on the bench's ESS panel (512 x 4096): BayesC for
+   400 sweeps through K3 ("auto") and through the plain grouped draw on the
+   card ("grouped"): GEBV correlation >= 0.98, sigma_e2 posterior means within
+   25 %;
+9. the public API again: `bayesc` (K3) and `bayesian_ridge` (joint block
+   draw, no kernel) on phase 6's panel -> `predict`.
 
-Launch counters are reset after the comparisons of phases 3-4 and read after
-phase 6; every kernel must have launched on that main path. The second-to-last
-line is the kernels' JSON record, the last line the device record. Any failed
-check raises, so the script exits non-zero and prints no result. TF32 is off
-for every float32 matmul (the plain versions must not round to TF32).
+Launch counters are reset after the comparisons of phases 3-4 and K3 and read
+after phase 9; every kernel must have launched on that main path. Then K3 is
+held against its plain version once more, on the first block of phase 7's
+chain as the chain called it. The second-to-last line is the kernels' JSON
+record, the last line the device record. Any failed check raises, so the
+script exits non-zero and prints no result. TF32 is off for every float32
+matmul (the plain versions must not round to TF32).
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -42,6 +61,13 @@ LAM = 0.1 * P_HEAD
 K2_TOL = 1e-5  # max |kernel - plain| / max |plain|, f32 and bf16 (bf16 products are exact in f32)
 GEBV_TOL = 1e-5  # headline GEBV: max |Δ| / max |plain|; K1 is exact, so only solve noise remains
 COR_MIN = 0.9999  # gblup y_pred on the card vs device="cpu"
+# K3 draws: max |kernel - plain| <= K3_TOL * max(1, max|b_new|), selections
+# identical. The two sum in other orders (the kernel carries u - cdelta with
+# fused multiply-adds, the plain version v / sigma_e2), and the running
+# correlation carries that float32 rounding through all bs/K groups of a block.
+K3_TOL = 1e-4
+# BASELINE config 3 as bench.py:389-406 builds it: bs=600 divides p, no padding.
+N_BIG, P_BIG, BS_BIG, SWEEPS_BIG, BURN_BIG = 10_000, 102_000, 600, 60, 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -80,6 +106,56 @@ def wall_median_s(fn, reps: int) -> float:
     return sorted(ts)[len(ts) // 2]
 
 
+def gumbel(shape, dev, gen):
+    import torch
+
+    u = torch.rand(shape, device=dev, generator=gen).clamp_(1e-12, 1.0 - 1e-7)
+    return -torch.log(-torch.log(u))
+
+
+def k3_inputs(dev, gen, bs: int, K: int, n: int = 1000, n_invalid: int = 0) -> list:
+    """One block as the chain hands it to K3: Cb = X_bᵀX_b and u = X_bᵀr of a
+    random centered dosage panel (n x bs), sparse effects, the noise."""
+    import torch
+
+    X = torch.randint(0, 3, (n, bs), device=dev, generator=gen).float() / 2
+    X -= X.mean(0)
+    val = torch.ones(bs, device=dev)
+    if n_invalid:
+        val[-n_invalid:] = 0.0
+        X[:, -n_invalid:] = 0.0  # padded markers carry zero Gram rows
+    b = torch.randn(bs, device=dev, generator=gen) * val
+    b *= torch.rand(bs, device=dev, generator=gen) < 0.1
+    r = torch.randn(n, device=dev, generator=gen)
+    return [X.T @ X, X.T @ r, b, torch.full((bs,), 0.02, device=dev), val,
+            torch.randn(bs, device=dev, generator=gen), gumbel((bs // K, 1 << K), dev, gen),
+            torch.tensor(0.9, device=dev), torch.tensor(0.1, device=dev)]
+
+
+def k3_check(args: list, K: int, label: str) -> float:
+    """K3 against its plain version on the same inputs; returns max |err|."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.kernels.gibbs_group import (
+        grouped_block_update,
+        grouped_block_update_plain,
+    )
+
+    d, b, incl = grouped_block_update(*args, K=K)
+    d_p, b_p, incl_p = grouped_block_update_plain(*args, K=K)
+    torch.cuda.synchronize()
+    err = max(float((b - b_p).abs().max()), float((d - d_p).abs().max()))
+    tol = K3_TOL * max(1.0, float(b_p.abs().max()))
+    same = torch.equal(incl, incl_p)
+    invalid = args[4] == 0
+    zero_invalid = not bool(b[invalid].any() or incl[invalid].any())
+    finite = bool(torch.isfinite(b).all() and torch.isfinite(d).all())
+    print(f"K3 {label}: incl_identical={same} included={int(incl.sum())}/{len(b)} "
+          f"max_abs_err={err:.3g} (tol {tol:.3g}) invalid_zero={zero_invalid} finite={finite}")
+    check(same and err <= tol and zero_invalid and finite, f"K3 at {label}")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -92,6 +168,10 @@ def main() -> int:
 
     import genomicbreedingmodels_tpu_torch as gbm
     from genomicbreedingmodels_tpu_torch.kernels import _build
+    from genomicbreedingmodels_tpu_torch.kernels.gibbs_group import (
+        grouped_block_update,
+        grouped_block_update_plain,
+    )
     from genomicbreedingmodels_tpu_torch.kernels.gram_tri import (
         gram_tri_float,
         gram_tri_float_plain,
@@ -231,6 +311,29 @@ def main() -> int:
             del X, K, R
     torch.cuda.empty_cache()
 
+    # -- K3 against its plain version -------------------------------------------
+    k3_errs = []
+    # The chain reads a 24 MB panel block between two K3 launches, so K3 finds
+    # its Cb cold in L2: time it after overwriting a buffer larger than L2
+    # (50 MB), less the time of that overwrite, and warm for comparison.
+    flush = torch.empty(2**24, device=dev)  # 64 MB
+    flush_ms = cuda_ms(flush.zero_, reps=50)
+    for bs, K, n_invalid in ((600, 6, 0), (600, 8, 0), (258, 6, 5)):
+        args = k3_inputs(dev, gen, bs, K, n_invalid=n_invalid)
+        label = f"bs={bs} K={K}" + (f" last {n_invalid} invalid" if n_invalid else "")
+        k3_errs.append(k3_check(args, K, label))
+        if bs == 600:
+            warm_ms = cuda_ms(lambda: grouped_block_update(*args, K=K), reps=50)
+            ms = cuda_ms(lambda: (flush.zero_(), grouped_block_update(*args, K=K)),
+                         reps=50) - flush_ms
+            plain_ms = cuda_ms(lambda: (flush.zero_(), grouped_block_update_plain(*args, K=K)),
+                               reps=5) - flush_ms
+            print(f"K3 bs={bs} K={K}: {ms:.4f} ms per block, cold L2 ({ms / (bs // K) * 1e3:.2f} us "
+                  f"per group; warm L2 {warm_ms:.4f} ms) vs plain {plain_ms:.4f} ms {card}")
+            if K == 6:  # the main path's K
+                records["gibbs_group"] = dict(ms=ms, plain_ms=plain_ms)
+    del flush
+
     # -- main path: counters from zero ----------------------------------------
     gbm.reset_launches()
 
@@ -265,6 +368,7 @@ def main() -> int:
 
     # -- 6. public API -----------------------------------------------------------
     y_test = phenomes.phenotypes[test, 0]
+    cor_test = {}
     for label, g, kernel in (("continuous", genomes, "gram_tri_float"),
                              ("called", called, "gram_tri_int8")):
         before = gbm.LAUNCHES[kernel]
@@ -278,12 +382,13 @@ def main() -> int:
         t_cpu = time.perf_counter() - t0
         cor_fit = float(np.corrcoef(fit.y_pred, fit_cpu.y_pred)[0, 1])
         cor_pred = float(np.corrcoef(pred, pred_cpu)[0, 1])
+        cor_test[label] = float(np.corrcoef(pred, y_test)[0, 1])
         ex = fit.extras
         print(f"gblup {label}: sigma2_e={ex['sigma2_e']:.6g} sigma2_u={ex['sigma2_u']:.6g} "
               f"h2={ex['h2']:.6g} (cpu: {fit_cpu.extras['sigma2_e']:.6g} "
               f"{fit_cpu.extras['sigma2_u']:.6g} {fit_cpu.extras['h2']:.6g})")
         print(f"gblup {label}: cor(y_pred, cpu)={cor_fit:.8f} cor(predict, cpu)={cor_pred:.8f} "
-              f"cor(predict, y_test)={np.corrcoef(pred, y_test)[0, 1]:.4f}")
+              f"cor(predict, y_test)={cor_test[label]:.4f}")
         stages = " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in ex["stage_seconds"].items())
         print(f"gblup {label}: fit+predict {t_fit:.3f} s on the card ({stages}); "
               f"device='cpu' {t_cpu:.3f} s {card}")
@@ -292,16 +397,124 @@ def main() -> int:
         check(cor_fit >= COR_MIN and cor_pred >= COR_MIN, f"gblup {label} vs plain path")
         check(gbm.LAUNCHES[kernel] > before, f"gblup {label} launched {kernel}")
 
+    # -- 7. Bayesian alphabet at size (BASELINE config 3) --------------------------
+    n, p = N_BIG, P_BIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X = torch.randint(0, 3, (n, p), dtype=torch.int8, device=dev, generator=gen)
+    X = X.to(torch.float32).mul_(0.5)  # dosages / 2, as bench.py
+    beta = torch.randn(p, device=dev, generator=gen)
+    beta *= torch.rand(p, device=dev, generator=gen) < 0.01  # 1 % causal
+    g_true = X @ beta
+    y = g_true + torch.randn(n, device=dev, generator=gen) * g_true.std()  # h2 ~ 0.5
+    torch.cuda.synchronize()
+    print(f"BayesC panel {n}x{p} f32 on the card ({X.numel() * 4 / 1e9:.2f} GB, "
+          f"{int((beta != 0).sum())} causal): {time.perf_counter() - t0:.2f} s")
+    # The chain's first call of K3, kept for the comparison after the main path.
+    first_block = []
+    # (the models package exports the function `bayesian` under the module's name)
+    bayes_mod = importlib.import_module("genomicbreedingmodels_tpu_torch.models.bayesian")
+    kernel_step = bayes_mod._block_kernel
+
+    def keep_first(*args):
+        if not first_block:
+            first_block.extend(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return kernel_step(*args)
+
+    launches_per_call = SWEEPS_BIG * (p // BS_BIG)
+    bayes_mod._block_kernel = keep_first
+    try:
+        times = {}
+        for call in ("first", "warm"):
+            before = gbm.LAUNCHES["gibbs_group"]
+            t0 = time.perf_counter()
+            mu, b_hat, diag = gbm.gibbs_regression(
+                X, y, model="BayesC", block_size=BS_BIG, n_iter=SWEEPS_BIG, n_burnin=BURN_BIG,
+                device=dev)
+            times[call] = time.perf_counter() - t0
+            launched = gbm.LAUNCHES["gibbs_group"] - before
+            st = diag["stage_seconds"]
+            print(f"BayesC {n}x{p} bs={BS_BIG} {SWEEPS_BIG} sweeps, {call} call: "
+                  f"{times[call]:.3f} s (prep {st['prep']:.3f} s: copy, centering, block Grams; "
+                  f"sweeps {st['sweeps']:.3f} s) path={diag['update']} K3 launches={launched}")
+            check(diag["update"] == "pallas" and launched == launches_per_call,
+                  f"BayesC at size launched K3 {launches_per_call} times")
+    finally:
+        bayes_mod._block_kernel = kernel_step
+    bt = torch.from_numpy(b_hat).to(dev, torch.float32)
+    cor_big = float(torch.corrcoef(torch.stack([X @ bt, g_true]))[0, 1])
+    sig_tr = diag["sigma_e2_trace"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"BayesC {n}x{p}: cor(X b_hat, g_true)={cor_big:.4f} "
+          f"sigma_e2 posterior mean={sig_tr[BURN_BIG:].mean():.6g} (var y={float(y.var()):.6g}) "
+          f"mu={mu:.6g}")
+    print(f"BayesC {n}x{p}: {SWEEPS_BIG * p / times['warm']:.6g} marker-updates/s (warm call), "
+          f"first call {times['first']:.3f} s, peak memory {peak:.2f} GiB {card}")
+    check(bool(np.all(np.isfinite(b_hat))) and bool(np.all(np.isfinite(sig_tr)))
+          and np.isfinite(mu), "BayesC at size finite")
+    check(cor_big >= 0.5, "BayesC at size: cor(X b_hat, g_true) >= 0.5")
+    del X, beta, g_true, y, bt
+    torch.cuda.empty_cache()
+
+    # -- 8. K3 and the plain grouped draw agree along the chain ---------------------
+    rng_e = np.random.default_rng(7)  # the bench's ESS panel (bench.py:333-337)
+    X_e = (rng_e.integers(0, 3, size=(512, 4096)) / 2.0).astype(np.float32)
+    beta_e = (rng_e.normal(size=4096) * (rng_e.uniform(size=4096) < 0.01)).astype(np.float32)
+    g_e = X_e @ beta_e
+    y_e = (g_e + rng_e.normal(size=512) * max(g_e.std(), 1e-3)).astype(np.float32)
+    chains = {}
+    for upd in ("auto", "grouped"):
+        t0 = time.perf_counter()
+        mu, b_e, diag = gbm.gibbs_regression(X_e, y_e, model="BayesC", n_iter=400, n_burnin=100,
+                                             seed=2, indicator_update=upd, device=dev)
+        t = time.perf_counter() - t0
+        s2_mean = float(diag["sigma_e2_trace"][100:].mean())
+        chains[upd] = (mu + X_e @ b_e, s2_mean)
+        print(f"BayesC 512x4096 400 sweeps, indicator_update={upd!r} -> {diag['update']}: {t:.3f} s, "
+              f"effect ESS {diag['ess_effects_mean']:.1f}, sigma_e2 ESS {diag['ess_sigma_e2']:.1f}, "
+              f"sigma_e2 posterior mean {s2_mean:.6g}, cor(X b, g)={np.corrcoef(X_e @ b_e, g_e)[0, 1]:.4f} "
+              f"{card}")
+        check(diag["update"] == ("pallas" if upd == "auto" else "grouped-hoisted"),
+              f"indicator_update={upd!r} path")
+    cor_chains = float(np.corrcoef(chains["auto"][0], chains["grouped"][0])[0, 1])
+    s2_rel = abs(chains["auto"][1] - chains["grouped"][1]) / chains["grouped"][1]
+    print(f"BayesC 512x4096 K3 vs grouped: GEBV cor={cor_chains:.4f} sigma_e2 rel diff={s2_rel:.4f}")
+    check(cor_chains >= 0.98 and s2_rel <= 0.25, "K3 and grouped chains agree")
+
+    # -- 9. public API: bayesc and bayesian_ridge -> predict ------------------------
+    for fn, path in ((gbm.bayesc, "pallas"), (gbm.bayesian_ridge, "joint-hoisted")):
+        before = gbm.LAUNCHES["gibbs_group"]
+        t0 = time.perf_counter()
+        fit = fn(genomes, phenomes, idx_entries=train, n_iter=300, n_burnin=100, device=dev)
+        pred = gbm.predict(fit, genomes, test, device=dev)
+        t = time.perf_counter() - t0
+        launched = gbm.LAUNCHES["gibbs_group"] - before
+        cor = float(np.corrcoef(pred, y_test)[0, 1])
+        print(f"{fn.__name__}: path={fit.extras['update']} K3 launches={launched} "
+              f"cor(predict, y_test)={cor:.4f} (gblup continuous {cor_test['continuous']:.4f}); "
+              f"fit+predict {t:.3f} s {card}")
+        check(bool(np.all(np.isfinite(fit.b_hat))) and bool(np.all(np.isfinite(pred))),
+              f"{fn.__name__} finite")
+        check(fit.extras["update"] == path and (launched > 0) == (path == "pallas"),
+              f"{fn.__name__} ran {path}")
+
     launches = dict(gbm.LAUNCHES)
     print(f"launches on the main path: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} launched on the main path")
+
+    # K3 on the first block of phase 7's chain, with its real Cb, u, s2, sigma_e2
+    # and noise (after the counters were read: these launches do not count).
+    k3_errs.append(k3_check(first_block[:9], first_block[9], "at-size chain, first block"))
+    records["gibbs_group"]["max_abs_err"] = max(k3_errs)
 
     sources = {
         "gram_tri_int8": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_int8.cu",
                           "genomicbreedingmodels_tpu/ops/pallas_kernels.py:138"),
         "gram_tri_float": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_float.cu",
                            "genomicbreedingmodels_tpu/ops/pallas_kernels.py:55"),
+        "gibbs_group": ("genomicbreedingmodels_tpu_torch/csrc/gibbs_group.cu",
+                        "genomicbreedingmodels_tpu/ops/pallas_gibbs.py:63"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,8 +7,11 @@ by path. It imports torch and numpy, never jax and never the JAX package.
 Covered so far: the GBLUP main path — data layer, simulators, GRM (exact int8
 dosage Gram K1 and f32/bf16 Gram K2, hand-written CUDA kernels for Hopper),
 the lower-triangle GBLUP solve, REML variance components, `gblup`, `predict`
-and `metrics`. Every public entry point takes `device=` (default "cuda");
-`device="cpu"` runs the kernels' plain PyTorch versions.
+and `metrics` — and the Bayesian alphabet (`gibbs_regression`, `bglr`,
+`bayesian` and the eight model functions), whose indicator models run the
+grouped Gibbs block update K3 as a hand-written CUDA kernel. Every public
+entry point takes `device=` (default "cuda"); `device="cpu"` runs the
+kernels' plain PyTorch versions.
 """
 
 from .core.structs import (
@@ -28,7 +31,21 @@ from .ops.metrics import metrics
 from .prediction import extractxyetc, mean_impute, predict
 from .models.gwas import loglikreml
 from .models.gblup import gblup, reml_variance_components
-from .kernels.gram_tri import LAUNCHES, reset_launches
+from .models.bayesian import (
+    BAYESIAN_MODELS,
+    bayesa,
+    bayesb,
+    bayesc,
+    bayesian,
+    bayesian_lasso,
+    bayesian_lasso_pi,
+    bayesian_ridge,
+    bayest,
+    bayestpi,
+    bglr,
+    gibbs_regression,
+)
+from .kernels._build import LAUNCHES, reset_launches
 
 __version__ = "0.1.0"
 
@@ -55,6 +72,18 @@ __all__ = [
     "gblup",
     "reml_variance_components",
     "loglikreml",
+    "gibbs_regression",
+    "bglr",
+    "bayesian",
+    "bayesa",
+    "bayesb",
+    "bayesc",
+    "bayesian_ridge",
+    "bayesian_lasso",
+    "bayesian_lasso_pi",
+    "bayest",
+    "bayestpi",
+    "BAYESIAN_MODELS",
     "LAUNCHES",
     "reset_launches",
 ]

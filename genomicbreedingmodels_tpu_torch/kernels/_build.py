@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use every `csrc/*.cu` is compiled for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, under `build/gbm_torch_kernels/` at
+At first use every `csrc/*.cu` is compiled for Hopper (`sm_90a`), one nvcc
+per source in parallel, and linked into ONE shared library with a plain C interface, under `build/gbm_torch_kernels/` at
 the root of the checkout (git-ignored) when the package runs from a checkout,
 and under the process's temporary directory (`tempfile.gettempdir()`, which
 honours $TMPDIR) when it is installed. The file name carries a hash of the
@@ -11,7 +11,12 @@ own output; nothing falls back to another implementation.
 
 Each C entry point takes raw device pointers, the sizes and the CUDA stream
 (all as Python ints), launches on that stream, and returns
-`cudaGetLastError()`; `launch` raises when it is not 0.
+`cudaGetLastError()`; `launch` raises when it is not 0. `_ENTRY_POINTS`
+gives each entry point its own ctypes signature.
+
+`LAUNCHES` counts kernel launches by name, for every wrapper of the port:
+a wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,23 +30,39 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "launch", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "NVCC_FLAGS", "build", "launch", "load", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]  # the checkout, when the package sits in one
 BUILD_DIR = (
     _ROOT / "build" if (_ROOT / "pyproject.toml").is_file() else Path(tempfile.gettempdir())
 ) / "gbm_torch_kernels"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # per source, with -c; the objects are linked with -shared
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills land in the build log
 )
-# C entry points: (pointer in, pointer out, n, p, stream) -> cudaError_t.
-_ENTRY_POINTS = ("gbm_gram_tri_int8", "gbm_gram_tri_f32", "gbm_gram_tri_bf16")
+_PTR, _SIZE = ctypes.c_void_p, ctypes.c_longlong
+# C entry points -> argument types; each returns a cudaError_t as int.
+_GRAM = (_PTR, _PTR, _SIZE, _SIZE, _PTR)  # (pointer in, pointer out, n, p, stream)
+_ENTRY_POINTS = {
+    "gbm_gram_tri_int8": _GRAM,
+    "gbm_gram_tri_f32": _GRAM,
+    "gbm_gram_tri_bf16": _GRAM,
+    # (Cb, u, b, s2, val, eta, gum, sig_e2, pi, delta, b_new, incl, bs, K, stream)
+    "gbm_gibbs_group": (_PTR,) * 12 + (_SIZE, _SIZE, _PTR),
+}
+
+# Kernel launches by the wrappers (CUDA tensors only; plain versions never count).
+LAUNCHES = {"gram_tri_int8": 0, "gram_tri_float": 0, "gibbs_group": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _sources() -> list[Path]:
@@ -66,7 +87,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile `csrc/*.cu` into the hashed shared library; return its path."""
+    """Compile `csrc/*.cu` into the hashed shared library; return its path.
+
+    One nvcc per source, all started together, then one link: the build
+    takes as long as the slowest source, not the sum."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -78,16 +102,28 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"build_{tag}.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    pid = os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.{pid}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]  # waits for every compile
+    results = [(c, p.returncode, o, e) for c, p, (o, e) in zip(cmds, procs, outs)]
+    tmp = out.with_name(f"{out.name}.{pid}.tmp")
+    failed = [r for r in results if r[1] != 0]
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.returncode, res.stdout, res.stderr))
+        failed = [r for r in results if r[1] != 0]
+    (BUILD_DIR / f"build_{tag}.log").write_text(
+        "".join(" ".join(c) + "\n" + o + e for c, _, o, e in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}) building {[s.name for s in srcs]}:\n"
-            f"{res.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} (exit {rc}):\n{e}" for c, rc, _, e in failed))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 
@@ -98,12 +134,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in _ENTRY_POINTS:
+            for name, argtypes in _ENTRY_POINTS.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                ]
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             lib.gbm_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gbm_cuda_error_string.restype = ctypes.c_char_p
@@ -111,10 +144,11 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(entry: str, src, out, n: int, p: int, stream: int) -> None:
-    """Call one C entry point; raise if the launch reports a CUDA error."""
+def launch(entry: str, *args) -> None:
+    """Call one C entry point with its arguments (pointers, sizes and the
+    stream, as ints); raise if the launch reports a CUDA error."""
     lib = load()
-    rc = getattr(lib, entry)(src, out, n, p, stream)
+    rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.gbm_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: cudaError {rc} ({msg})")

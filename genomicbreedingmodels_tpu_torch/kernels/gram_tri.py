@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._build import LAUNCHES, reset_launches
 
 __all__ = [
     "LAUNCHES",
@@ -31,17 +32,9 @@ __all__ = [
     "reset_launches",
 ]
 
-# Kernel launches by the wrappers (CUDA tensors only; plain versions never count).
-LAUNCHES = {"gram_tri_int8": 0, "gram_tri_float": 0}
-
 _INT32_LIMIT = 2**31  # exact int32 accumulation needs p·ploidy² below this
 _F32_EXACT = 2**24  # integers up to 2²⁴ are exact in float32
 _PLAIN_CHUNK = 65_536  # marker columns per float32 product in the int8 plain version
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _check_panel(X, name: str, dtypes) -> None:

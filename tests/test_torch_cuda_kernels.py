@@ -1,4 +1,4 @@
-"""K1/K2 CUDA kernels against their plain versions, on the card only.
+"""K1/K2/K3 CUDA kernels against their plain versions, on the card only.
 
 The kernels have no CPU mode, so these tests carry the `cuda` marker and skip
 where there is no CUDA device. This file imports neither jax nor the JAX
@@ -10,7 +10,7 @@ package, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from genomicbreedingmodels_tpu_torch.kernels import gram_tri
+from genomicbreedingmodels_tpu_torch.kernels import gibbs_group, gram_tri
 
 
 @pytest.fixture
@@ -47,3 +47,53 @@ def test_cuda_wrapper_rejects_bad_inputs_on_card(cuda_device):
         gram_tri.gram_tri_float(torch.zeros(4, 8, dtype=torch.float64, device=cuda_device))
     empty = gram_tri.gram_tri_int8(torch.zeros(0, 5, dtype=torch.int8, device=cuda_device))
     assert empty.shape == (0, 0)
+
+
+def _gibbs_block(dev, bs, K, n=1000, n_invalid=0, seed=0):
+    """One chain-like block on the card: Cb and u = X_bᵀr from a random
+    centered dosage panel, sparse effects, and the shared noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randint(0, 3, (n, bs), device=dev, generator=g).float() / 2
+    X -= X.mean(0)
+    val = torch.ones(bs, device=dev)
+    if n_invalid:
+        val[-n_invalid:] = 0.0
+        X[:, -n_invalid:] = 0.0
+    b = torch.randn(bs, device=dev, generator=g) * (torch.rand(bs, device=dev, generator=g) < 0.1) * val
+    r = torch.randn(n, device=dev, generator=g)
+    gum = -torch.log(-torch.log(torch.rand((bs // K, 1 << K), device=dev, generator=g)
+                                .clamp_(1e-12, 1 - 1e-7)))
+    return (X.T @ X, X.T @ r, b, torch.full((bs,), 0.02, device=dev), val,
+            torch.randn(bs, device=dev, generator=g), gum,
+            torch.tensor(0.9, device=dev), torch.tensor(0.1, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,K", [(64, 8), (66, 6), (600, 6), (600, 8)])  # 64 at K=6: 66, as the chain rounds
+def test_gibbs_group_matches_plain_on_card(cuda_device, bs, K):
+    """K3 against its plain version on the same inputs and noise: the same
+    selections, and draws within 1e-4·max(1, max|b|). The two sum in other
+    orders (the plain version carries v/σ²ₑ, the kernel u − cdelta, with
+    fused multiply-adds), and the running correlation carries that rounding
+    through all bs/K groups."""
+    args = _gibbs_block(cuda_device, bs, K, n_invalid=3)
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    d, b_new, incl = gibbs_group.grouped_block_update(*args, K=K)
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
+    d_p, b_p, incl_p = gibbs_group.grouped_block_update_plain(*args, K=K)
+    torch.cuda.synchronize()
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
+    assert torch.equal(incl, incl_p)
+    tol = 1e-4 * max(1.0, float(b_p.abs().max()))
+    assert float((b_new - b_p).abs().max()) <= tol
+    assert float((d - d_p).abs().max()) <= tol
+    assert not b_new[-3:].any() and not incl[-3:].any()
+
+
+@pytest.mark.cuda
+def test_gibbs_group_wrapper_rejects_bad_inputs_on_card(cuda_device):
+    args = list(_gibbs_block(cuda_device, 60, 6))
+    with pytest.raises(ValueError, match="Cb on"):
+        gibbs_group.grouped_block_update(*args[:7], args[7].cpu(), args[8], K=6)
+    with pytest.raises(ValueError, match="K <= 8"):
+        gibbs_group.grouped_block_update(*args, K=10)
