@@ -5,13 +5,18 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    nvcc, whether triton imports;
-2. builds the port's kernels from `genomicbreedingmodels_tpu_torch/csrc`;
+2. builds the port's kernels from `genomicbreedingmodels_tpu_torch/csrc`,
+   prints each kernel's registers and spills from ptxas and, where cuobjdump
+   exists, its count of wgmma (IGMMA / HGMMA) and TMA (UTMALDG) instructions;
 3. K1 (`gram_tri_int8`) against its plain version: bit-equal, strict upper
    triangle zero, exactly symmetric once mirrored; on random dosages and on
    the called panel's own training dosages that phase 6's `gblup` uses;
+   timed at 8192x262144 beside its bound and `torch._int_mm(D, D.t())`;
 4. K2 (`gram_tri_float`, f32 and bf16) against its plain version (a float64
    product): max |err| <= 1e-5 · max|G|; on random panels and on phase 6's
-   continuous training panel;
+   continuous training panel; timed at 1844x16384 and 2048x32768 beside its
+   bound and `torch.mm(X, X.T)` (TF32 off; bf16 with an f32 output where
+   this torch's mm takes `out_dtype`);
 5. the headline step at n=8192, p=262144 int8: `gram_dosage_lower` (K1) then
    `gblup_solve_lower`, checked against the plain-version path on the card
    and timed against it;
@@ -42,6 +47,15 @@ chain as the chain called it. The second-to-last line is the kernels' JSON
 record, the last line the device record. Any failed check raises, so the
 script exits non-zero and prints no result. TF32 is off for every float32
 matmul (the plain versions must not round to TF32).
+
+Each kernel's `bound_ms` is the least time the card could take for the same
+work: the larger of its operations over the published H100 SXM peak for
+their type (`PEAK`) and its bytes (each input read once, each output written
+once) over 3.35 TB/s. K2 in f32 takes three TF32 products on the tensor
+cores, so its bound counts those at 495 TFLOP/s; `ffma_bound_ms` gives the
+bound of the one f32 product at the 67 TFLOP/s of FFMA. `library_ms` times
+one PyTorch call computing the same function (the port never calls it), or
+is null where there is none.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_HEAD, P_HEAD = 8192, 262_144
 # λ = 0.1 on the per-marker scale K/p, as in entry(); on the raw dosage Gram
@@ -68,6 +83,60 @@ COR_MIN = 0.9999  # gblup y_pred on the card vs device="cpu"
 K3_TOL = 1e-4
 # BASELINE config 3 as bench.py:389-406 builds it: bs=600 divides p, no padding.
 N_BIG, P_BIG, BS_BIG, SWEEPS_BIG, BURN_BIG = 10_000, 102_000, 600, 60, 10
+# Published dense peaks of one H100 SXM at 700 W (operations/s) and its HBM rate (bytes/s).
+PEAK = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+HBM = 3.35e12
+
+
+def bound(ops: float, peak: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of ops/peak and bytes/HBM, in ms."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gram_bound(n: int, p: int, kind: str, itemsize: int, products: int = 1) -> tuple[float, str]:
+    """The lower half of X·Xᵀ: n(n+1)/2·p multiply-adds (2 operations each)
+    per product the kernel takes (3 for K2's 3xTF32), the panel read once,
+    the n(n+1)/2 4-byte lower triangle written once."""
+    tri = n * (n + 1) / 2
+    return bound(2.0 * tri * p * products, PEAK[kind], n * p * itemsize + 4.0 * tri)
+
+
+def kernel_build_report(lib_path: Path) -> None:
+    """ptxas registers/spills per kernel from the build log, and the wgmma and
+    TMA instructions per kernel in the built library (cuobjdump)."""
+    import shutil
+
+    from genomicbreedingmodels_tpu_torch.kernels import _build
+
+    tag = lib_path.stem.rsplit("_", 1)[1]  # libgbm_torch_kernels_<tag>.so
+    fn = None
+    for line in (lib_path.parent / f"build_{tag}.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and ("registers" in line or "spill" in line):
+            print(f"  ptxas {fn}: {line.strip()}")
+    tool = shutil.which("cuobjdump")
+    beside_nvcc = Path(_build._nvcc()).with_name("cuobjdump")
+    if tool is None and beside_nvcc.is_file():
+        tool = str(beside_nvcc)
+    if tool is None:
+        print("cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = {"IGMMA": 0, "HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
+    for fn, c in counts.items():
+        if "gram_tri" in fn:
+            print(f"  sass {fn}: {c}")
+            check(c["IGMMA"] + c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{fn} is a wgmma kernel fed by TMA")
 
 
 def check(cond: bool, what: str) -> None:
@@ -214,10 +283,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for log in sorted(_build.BUILD_DIR.glob("build_*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    kernel_build_report(_build.build())
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -271,14 +337,31 @@ def main() -> int:
         if (n, p) == (N_HEAD, P_HEAD):
             ms = cuda_ms(lambda: gram_tri_int8(D, 2), reps=5)
             plain_ms = cuda_ms(lambda: gram_tri_int8_plain(D, 2), reps=2)
-            ops = 2.0 * n * n * p / 2  # lower half of D·Dᵀ
-            print(f"K1 {n}x{p}: {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s on the lower half) "
-                  f"vs plain {plain_ms:.3f} ms {card}")
-            records["gram_tri_int8"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+            lib_ms = cuda_ms(lambda: torch._int_mm(D, D.t()), reps=3)
+            bound_ms, bound_by = gram_bound(n, p, "int8", 1)
+            print(f"K1 {n}x{p}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+                  f"{bound_ms / ms:.1%} of bound) vs plain {plain_ms:.3f} ms, "
+                  f"torch._int_mm {lib_ms:.3f} ms {card}")
+            records["gram_tri_int8"] = dict(
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, library="torch._int_mm(D, D.t())")
         del D, K, R, M
     torch.cuda.empty_cache()
 
     # -- 4. K2 against its plain version --------------------------------------
+    try:  # the bf16 yardstick: an f32 output where this torch's mm takes out_dtype
+        torch.mm(torch.ones(8, 8, device=dev, dtype=torch.bfloat16),
+                 torch.ones(8, 8, device=dev, dtype=torch.bfloat16), out_dtype=torch.float32)
+        bf16_lib = "torch.mm(X, X.T, out_dtype=torch.float32)"
+
+        def mm_bf16(X):
+            return torch.mm(X, X.T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        bf16_lib = "torch.mm(X, X.T) in bf16 (its output is rounded to bf16: no out_dtype here)"
+
+        def mm_bf16(X):
+            return torch.mm(X, X.T)
+    k2_shapes = []
     k2_inputs = [(129, 257), (256, 2048), (2048, 32768), (n_train, 16_384),
                  "gblup continuous panel"]
     for what in k2_inputs:
@@ -300,14 +383,28 @@ def main() -> int:
                   f"rel={err / scale:.3g} strict_upper_zero={upper0}")
             check(err <= K2_TOL * scale and upper0, f"K2 at {label}")
             if not isinstance(what, str) and what in ((n_train, 16_384), (2048, 32768)):
+                f32 = dt == torch.float32
                 ms = cuda_ms(lambda: gram_tri_float(X), reps=10)
                 plain_ms = cuda_ms(lambda: gram_tri_float_plain(X), reps=5)
-                flops = 2.0 * n * n * p / 2
-                print(f"K2 {n}x{p} {str(dt)[6:]}: {ms:.3f} ms "
-                      f"({flops / ms / 1e9:.1f} TFLOP/s on the lower half) "
-                      f"vs plain (float64) {plain_ms:.3f} ms {card}")
-                if (n, p) == (n_train, 16_384) and dt == torch.float32:
-                    records["gram_tri_float"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                lib_ms = cuda_ms((lambda: torch.mm(X, X.T)) if f32 else (lambda: mm_bf16(X)), reps=10)
+                # f32 runs as three TF32 products on the tensor cores; the same
+                # product as FFMA (torch.mm's route, TF32 off) is bounded at 67 TFLOP/s.
+                bound_ms, bound_by = (gram_bound(n, p, "tf32", 4, products=3) if f32
+                                      else gram_bound(n, p, "bf16", 2))
+                rec = dict(shape=f"{n}x{p}", dtype=str(dt)[6:], max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms,
+                           library="torch.mm(X, X.T), TF32 off" if f32 else bf16_lib)
+                if f32:
+                    rec["ffma_bound_ms"] = gram_bound(n, p, "f32", 4)[0]
+                k2_shapes.append(rec)
+                ffma = f", FFMA bound {rec['ffma_bound_ms']:.3f} ms" if f32 else ""
+                print(f"K2 {n}x{p} {str(dt)[6:]}: {ms:.3f} ms, bound {bound_ms:.3f} ms "
+                      f"({bound_by}; {bound_ms / ms:.1%} of bound{ffma}) vs plain (float64) "
+                      f"{plain_ms:.3f} ms, {rec['library']} {lib_ms:.3f} ms {card}")
+                if (n, p) == (n_train, 16_384) and f32:  # the shape gblup hands K2
+                    records["gram_tri_float"] = {k: v for k, v in rec.items()
+                                                 if k not in ("shape", "dtype")}
             del X, K, R
     torch.cuda.empty_cache()
 
@@ -331,7 +428,15 @@ def main() -> int:
             print(f"K3 bs={bs} K={K}: {ms:.4f} ms per block, cold L2 ({ms / (bs // K) * 1e3:.2f} us "
                   f"per group; warm L2 {warm_ms:.4f} ms) vs plain {plain_ms:.4f} ms {card}")
             if K == 6:  # the main path's K
-                records["gibbs_group"] = dict(ms=ms, plain_ms=plain_ms)
+                # Bytes: every input read once (Cb dominates, bs²·4), the outputs
+                # (d, b_new, incl) written once. Operations: per group and
+                # pattern a K×K Cholesky and two triangular solves, ~K³/3 + 2K².
+                nbytes = sum(a.numel() * a.element_size() for a in args) + 3 * bs * 4
+                bound_ms, bound_by = bound((bs // K) * 2**K * (K**3 / 3 + 2 * K * K),
+                                           PEAK["f32"], nbytes)
+                records["gibbs_group"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=bound_by, library_ms=None, library="none")
+                print(f"K3 bs={bs} K={K}: bound {bound_ms * 1e3:.3f} us ({bound_by})")
     del flush
 
     # -- main path: counters from zero ----------------------------------------
@@ -509,13 +614,16 @@ def main() -> int:
     records["gibbs_group"]["max_abs_err"] = max(k3_errs)
 
     sources = {
-        "gram_tri_int8": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_int8.cu",
+        # K1 and K2 are one mainloop in the header, instantiated by gram_tri_int8.cu
+        # and gram_tri_float.cu.
+        "gram_tri_int8": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_sm90.cuh",
                           "genomicbreedingmodels_tpu/ops/pallas_kernels.py:138"),
-        "gram_tri_float": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_float.cu",
+        "gram_tri_float": ("genomicbreedingmodels_tpu_torch/csrc/gram_tri_sm90.cuh",
                            "genomicbreedingmodels_tpu/ops/pallas_kernels.py:55"),
         "gibbs_group": ("genomicbreedingmodels_tpu_torch/csrc/gibbs_group.cu",
                         "genomicbreedingmodels_tpu/ops/pallas_gibbs.py:63"),
     }
+    records["gram_tri_float"]["shapes"] = k2_shapes
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **records[name]}

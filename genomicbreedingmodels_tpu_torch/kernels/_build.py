@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 At first use every `csrc/*.cu` is compiled for Hopper (`sm_90a`), one nvcc
-per source in parallel, and linked into ONE shared library with a plain C interface, under `build/gbm_torch_kernels/` at
+per source in parallel (headers `csrc/*.cuh` are included, not compiled), and linked into ONE shared library with a plain C interface, under `build/gbm_torch_kernels/` at
 the root of the checkout (git-ignored) when the package runs from a checkout,
 and under the process's temporary directory (`tempfile.gettempdir()`, which
 honours $TMPDIR) when it is installed. The file name carries a hash of the
@@ -93,7 +93,7 @@ def build() -> Path:
     takes as long as the slowest source, not the sum."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sorted(srcs + list(CSRC.glob("*.cuh"))):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     tag = h.hexdigest()[:16]

@@ -39,6 +39,67 @@ def test_kernels_match_plain_on_card(cuda_device, n, p):
     assert gram_tri.LAUNCHES["gram_tri_float"] == before["gram_tri_float"] + 2
 
 
+def _check_gram_kernels(D, X_list):
+    """K1 bit-equal to its plain version, K2 within 1e-5·max|G| of float64,
+    strict upper triangle zero for both."""
+    K = gram_tri.gram_tri_int8(D)
+    assert torch.equal(K, gram_tri.gram_tri_int8_plain(D))
+    assert not torch.triu(K, 1).any()
+    for X in X_list:
+        K, R = gram_tri.gram_tri_float(X), gram_tri.gram_tri_float_plain(X)
+        assert float((K - R).abs().max()) <= 1e-5 * float(R.abs().max()), X.dtype
+        assert not torch.triu(K, 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129, 300])
+@pytest.mark.parametrize("p", [1, 15, 257, 4099])
+def test_gram_kernels_ragged_on_card(cuda_device, n, p):
+    """Ragged n and p: TMA zero-fills past the panel, the wrapper pads p to a
+    16-byte row, and tiles crossing the diagonal write only col <= row."""
+    g = torch.Generator(device=cuda_device).manual_seed(n * 10_000 + p)
+    D = torch.randint(0, 3, (n, p), dtype=torch.int8, device=cuda_device, generator=g)
+    X = torch.rand((n, p), device=cuda_device, generator=g)
+    _check_gram_kernels(D, [X, X.to(torch.bfloat16)])
+
+
+@pytest.mark.cuda
+def test_gram_int8_marker_splits_on_card(cuda_device):
+    """Few tiles over many markers: K1 splits each tile's markers eight ways
+    and adds the partial sums with int32 atomics, still bit-equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    D = torch.randint(0, 3, (300, 65_536), dtype=torch.int8, device=cuda_device, generator=g)
+    _check_gram_kernels(D, [])
+
+
+@pytest.mark.cuda
+def test_gram_kernels_misaligned_base_on_card(cuda_device):
+    """A contiguous view whose base is not 16-byte aligned is copied for TMA."""
+    n, p = 200, 512
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    flat = torch.randint(0, 3, (n * p + 1,), dtype=torch.int8, device=cuda_device, generator=g)
+    D = flat[1:].view(n, p)
+    assert D.is_contiguous() and D.data_ptr() % 16
+    xs = []
+    for dt in (torch.float32, torch.bfloat16):
+        flat = torch.rand((n * p + 1,), device=cuda_device, generator=g).to(dt)
+        xs.append(flat[1:].view(n, p))
+        assert xs[-1].data_ptr() % 16
+    _check_gram_kernels(D, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gram_float_at_size_on_card(cuda_device, dt):
+    """K2 at 2048 x 32768, the timed shape: 3xTF32 (f32) and bf16 wgmma with
+    256-marker folds stay within 1e-5·max|G| of float64."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    X = torch.rand((2048, 32768), device=cuda_device, generator=g).to(dt)
+    K, R = gram_tri.gram_tri_float(X), gram_tri.gram_tri_float_plain(X)
+    assert float((K - R).abs().max()) <= 1e-5 * float(R.abs().max())
+    assert not torch.triu(K, 1).any()
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
