@@ -23,8 +23,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    (K3) K3 (`grouped_block_update`, the grouped Gibbs block update) against
    its plain version on the same inputs and noise: identical selections,
    draws within K3_TOL; at bs=600 with K=6 and K=8, at bs=258 with K=6 and the
-   last 5 markers invalid, and timed per block at bs=600 with Cb cold in L2,
-   as the chain finds it;
+   last 5 markers invalid, at bs=1024 with K=8 (the largest "auto" block,
+   every Cb row staged in shared memory) and at bs=8192 with K=8 and the last
+   7 markers invalid (the rows staged in part, the rest read from L2); timed
+   per block and per group at bs=600, K=6 and K=8, with Cb cold in L2, as
+   the chain finds it, and warm;
 6. the public API: simulate -> `gblup` on a continuous panel (K2) and on the
    called panel (K1) -> `predict`, each checked against the same calls with
    device="cpu" (the plain versions);
@@ -33,6 +36,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    bench.py builds it) with block_size=600 for 60 sweeps, twice (first and
    warm call): K3 launched once per block and sweep, finite b and sigma_e2,
    cor(X b, g_true) >= 0.5; marker-updates/s, prep against sweeps, peak memory;
+   and, at the very end of the script, one call of 5 sweeps under
+   `torch.profiler`: the device's busy share (kernel time over the call's
+   wall time) and K3's share of kernel time;
 8. chain-level agreement on the bench's ESS panel (512 x 4096): BayesC for
    400 sweeps through K3 ("auto") and through the plain grouped draw on the
    card ("grouped"): GEBV correlation >= 0.98, sigma_e2 posterior means within
@@ -43,10 +49,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
 held against its plain version once more, on the first block of phase 7's
-chain as the chain called it. The second-to-last line is the kernels' JSON
-record, the last line the device record. Any failed check raises, so the
-script exits non-zero and prints no result. TF32 is off for every float32
-matmul (the plain versions must not round to TF32).
+chain as the chain called it, and phase 7's panel goes through the profiler.
+The second-to-last line is the kernels' JSON record, the last line the
+device record. Any failed check raises, so the script exits non-zero and
+prints no result. TF32 is off for every float32 matmul (the plain versions
+must not round to TF32).
 
 Each kernel's `bound_ms` is the least time the card could take for the same
 work: the larger of its operations over the published H100 SXM peak for
@@ -173,6 +180,38 @@ def wall_median_s(fn, reps: int) -> float:
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     return sorted(ts)[len(ts) // 2]
+
+
+def profile_call(fn, kernel: str, top: int = 4) -> tuple[float, float, float, list]:
+    """One call of `fn` under torch.profiler: (wall seconds, seconds of device
+    kernel time, seconds of it in kernels whose name holds `kernel`, the `top`
+    device events with the most time as (seconds, name)). The device time is
+    the sum of the device events' self times, as the profiler's own table
+    totals it: a CPU op's self device time repeats that of the kernels it
+    launched, which are events of their own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total = mine = 0.0
+    events = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:  # torch before the device-neutral names
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += us
+        if kernel in e.key:
+            mine += us
+        events.append((us / 1e6, e.key))
+    return wall, total / 1e6, mine / 1e6, sorted(events, reverse=True)[:top]
 
 
 def gumbel(shape, dev, gen):
@@ -415,7 +454,7 @@ def main() -> int:
     # (50 MB), less the time of that overwrite, and warm for comparison.
     flush = torch.empty(2**24, device=dev)  # 64 MB
     flush_ms = cuda_ms(flush.zero_, reps=50)
-    for bs, K, n_invalid in ((600, 6, 0), (600, 8, 0), (258, 6, 5)):
+    for bs, K, n_invalid in ((600, 6, 0), (600, 8, 0), (258, 6, 5), (1024, 8, 0), (8192, 8, 7)):
         args = k3_inputs(dev, gen, bs, K, n_invalid=n_invalid)
         label = f"bs={bs} K={K}" + (f" last {n_invalid} invalid" if n_invalid else "")
         k3_errs.append(k3_check(args, K, label))
@@ -425,8 +464,10 @@ def main() -> int:
                          reps=50) - flush_ms
             plain_ms = cuda_ms(lambda: (flush.zero_(), grouped_block_update_plain(*args, K=K)),
                                reps=5) - flush_ms
-            print(f"K3 bs={bs} K={K}: {ms:.4f} ms per block, cold L2 ({ms / (bs // K) * 1e3:.2f} us "
-                  f"per group; warm L2 {warm_ms:.4f} ms) vs plain {plain_ms:.4f} ms {card}")
+            G = bs // K
+            print(f"K3 bs={bs} K={K}: {ms:.4f} ms per block, cold L2 ({ms / G * 1e3:.3f} us per group); "
+                  f"warm L2 {warm_ms:.4f} ms ({warm_ms / G * 1e3:.3f} us per group) "
+                  f"vs plain {plain_ms:.4f} ms {card}")
             if K == 6:  # the main path's K
                 # Bytes: every input read once (Cb dominates, bs²·4), the outputs
                 # (d, b_new, incl) written once. Operations: per group and
@@ -435,7 +476,8 @@ def main() -> int:
                 bound_ms, bound_by = bound((bs // K) * 2**K * (K**3 / 3 + 2 * K * K),
                                            PEAK["f32"], nbytes)
                 records["gibbs_group"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                              bound_by=bound_by, library_ms=None, library="none")
+                                              bound_by=bound_by, library_ms=None, library="none",
+                                              warm_ms=warm_ms, us_per_group=ms / G * 1e3)
                 print(f"K3 bs={bs} K={K}: bound {bound_ms * 1e3:.3f} us ({bound_by})")
     del flush
 
@@ -558,7 +600,7 @@ def main() -> int:
     check(bool(np.all(np.isfinite(b_hat))) and bool(np.all(np.isfinite(sig_tr)))
           and np.isfinite(mu), "BayesC at size finite")
     check(cor_big >= 0.5, "BayesC at size: cor(X b_hat, g_true) >= 0.5")
-    del X, beta, g_true, y, bt
+    del beta, g_true, bt  # X and y stay for the profiler pass, the script's last phase
     torch.cuda.empty_cache()
 
     # -- 8. K3 and the plain grouped draw agree along the chain ---------------------
@@ -612,6 +654,29 @@ def main() -> int:
     # and noise (after the counters were read: these launches do not count).
     k3_errs.append(k3_check(first_block[:9], first_block[9], "at-size chain, first block"))
     records["gibbs_group"]["max_abs_err"] = max(k3_errs)
+
+    # Phase 7's question, asked last: does the device or the host set the
+    # pace at size? The same short call without and then under the profiler.
+    # The profiler slows the host, so the device time is also set against
+    # the unprofiled call's wall. It runs after every timed phase because,
+    # once the profiler had traced the card, later host-bound chains in the
+    # same process ran 30-70 % slower, kernel-free ones too.
+    def short_call():
+        gbm.gibbs_regression(X, y, model="BayesC", block_size=BS_BIG, n_iter=5, n_burnin=1,
+                             device=dev)
+
+    plain_wall = wall_median_s(short_call, reps=1)
+    wall, busy, k3, top = profile_call(short_call, "gibbs_group")
+    if busy > 0:
+        print(f"BayesC {N_BIG}x{P_BIG} 5 sweeps under torch.profiler (one call, prep included): "
+              f"wall {wall * 1e3:.1f} ms, device kernel time {busy * 1e3:.1f} ms (busy share "
+              f"{busy / wall:.1%}), K3 {k3 * 1e3:.1f} ms ({k3 / busy:.1%} of device time); the "
+              f"same call without the profiler {plain_wall * 1e3:.1f} ms (device time over it "
+              f"{busy / plain_wall:.1%}) {card}")
+        print("  most device time: " + "; ".join(f"{t * 1e3:.1f} ms {name[:70]}" for t, name in top))
+    else:
+        print("BayesC under torch.profiler: the trace holds no device time (not measured)")
+    del X, y
 
     sources = {
         # K1 and K2 are one mainloop in the header, instantiated by gram_tri_int8.cu

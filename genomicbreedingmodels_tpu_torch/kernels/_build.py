@@ -49,8 +49,9 @@ _ENTRY_POINTS = {
     "gbm_gram_tri_int8": _GRAM,
     "gbm_gram_tri_f32": _GRAM,
     "gbm_gram_tri_bf16": _GRAM,
-    # (Cb, u, b, s2, val, eta, gum, sig_e2, pi, delta, b_new, incl, bs, K, stream)
-    "gbm_gibbs_group": (_PTR,) * 12 + (_SIZE, _SIZE, _PTR),
+    # (Cb, u, b, s2, val, eta, gum, sig_e2, pi, delta, b_new, incl, bs, K,
+    #  tables, flags, epoch, slice_floats, staged_quads, stream)
+    "gbm_gibbs_group": (_PTR,) * 12 + (_SIZE, _SIZE, _PTR, _PTR, _SIZE, _SIZE, _SIZE, _PTR),
 }
 
 # Kernel launches by the wrappers (CUDA tensors only; plain versions never count).

@@ -9,12 +9,17 @@ jointly from their K-dim Gaussian conditional, and folds the change into the
 correlation of the later groups (exact partially-collapsed blocked Gibbs).
 
 - `grouped_block_update` keeps the JAX signature and contract. A CUDA tensor
-  goes to the hand-written kernel `csrc/gibbs_group.cu`, launched on the
+  goes to the hand-written kernel `csrc/gibbs_group.cu`, one launch on the
   current stream, and `LAUNCHES["gibbs_group"]` goes up by one; a failed
   build or launch raises. A CPU tensor goes to the plain version. The
-  kernel takes 1 <= K <= 8 (one thread per pattern) and bs <= MAX_BS (the
-  running correlation lives in shared memory); the wrapper raises beyond,
-  on every device.
+  kernel takes 1 <= K <= 8 and bs <= MAX_BS (the running correlation lives
+  in shared memory); the wrapper raises beyond, on every device.
+- The kernel's builder CTAs write every group's pattern tables into a
+  workspace that the wrapper keeps per device and stream (`_workspace`,
+  grown from PyTorch's allocator, never freed), each builder CTA publishes
+  one ready flag for its groups, and the scan CTA reads a group's tables
+  once that flag carries this launch's epoch (`next_epoch`).
+  `k3_layout` gives the workspace's and the shared memory's geometry.
 - `grouped_block_update_plain` is the same law in torch: the block's 2^K
   pattern factors are built batched (`group_tables`), then a loop over the
   groups scores, selects and draws (`group_scan`). The Gibbs chain's
@@ -27,6 +32,9 @@ the same numbers.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -41,11 +49,80 @@ __all__ = [
     "group_tables",
     "grouped_block_update",
     "grouped_block_update_plain",
+    "k3_layout",
+    "next_epoch",
     "pattern_bits",
 ]
 
-MAX_K = 8  # one thread per pattern: 2^8 = 256 threads
+MAX_K = 8  # 2^8 = 256 patterns: one builder thread each, 8 per scan lane
 MAX_BS = 8192  # the running correlation w = u − cdelta: bs floats of shared memory
+
+# The kernel's geometry (csrc/gibbs_group.cu): CTAs of 256 threads; a ring of
+# 3 table slices and Cb row stages; at most 227 KB of shared memory per CTA.
+_NT, _STAGES, _SMEM_MAX = 256, 3, 232_448
+_EPOCH_MAX = 2**31 - 1  # the flags are int32
+
+
+@dataclass(frozen=True)
+class K3Layout:
+    groups: int  # G = bs / K
+    slice_floats: int  # one group's table slice, a multiple of 4 floats (16 bytes)
+    quads: int  # column quads of a Cb row, ceil(bs / 4)
+    staged_quads: int  # the first quads, staged in shared memory; the rest are read from L2
+    builders: int  # builder CTAs beside the scan CTA, one ready flag each
+    smem_bytes: int  # dynamic shared memory of each CTA
+
+    @property
+    def table_floats(self) -> int:
+        return self.groups * self.slice_floats
+
+
+@lru_cache(maxsize=64)  # the chain asks once per block, with one or two (bs, K)
+def k3_layout(bs: int, K: int) -> K3Layout:
+    """The kernel's workspace and shared-memory geometry at (bs, K).
+
+    A group's slice holds W̃'s K(K+1)/2 lower entries and the constant
+    log-weight of each of the 2^K patterns, then C_gg·b_g, the K×K block
+    linking it to the group before, b_g, η_g and the validity mask. Shared
+    memory holds the ring of slices, the staged quads of the K Cb rows per
+    stage, w (padded to whole quads) and the last two groups' (d, b_new,
+    incl). Every quad
+    is staged where they fit (up to bs ≈ 1024 at K=8); beyond, the first
+    `staged_quads` are, and the update reads the rest from L2."""
+    G, npat = bs // K, 1 << K
+    used = npat * (K * (K + 1) // 2 + 1) + K * K + 4 * K
+    slice_floats = -(-used // 4) * 4
+    quads = -(-bs // 4)
+    fixed = 4 * (8 + _STAGES * slice_floats + 4 * quads + 6 * K)  # 8: the ring's mbarriers
+    staged = min(quads, (_SMEM_MAX - fixed) // (16 * _STAGES * K))
+    if staged < 0:
+        raise ValueError(f"grouped_block_update: bs={bs}, K={K} does not fit shared memory")
+    gpc = max(1, _NT // npat)
+    return K3Layout(G, slice_floats, quads, staged, -(-G // gpc),
+                    fixed + 16 * _STAGES * K * staged)
+
+
+def next_epoch(epoch: int) -> int:
+    """The epoch of the next launch on a workspace: 1, 2, ..., 2³¹−1, 1, ...
+    Never 0, the value of a fresh flag."""
+    return epoch % _EPOCH_MAX + 1
+
+
+# (device, stream) -> [tables (float32), flags (int32), epoch of the last launch]
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, layout: K3Layout):
+    """This (device, stream)'s workspace, grown to `layout`, and the epoch of
+    the launch about to use it. Launches on one stream run in order, so one
+    stream's launches never race on it; each stream has its own."""
+    ws = _WORKSPACES.get((dev, stream))
+    if ws is None or ws[0].numel() < layout.table_floats or ws[1].numel() < layout.builders:
+        ws = [torch.empty(layout.table_floats, dtype=torch.float32, device=dev),
+              torch.zeros(layout.builders, dtype=torch.int32, device=dev), 0]
+        _WORKSPACES[(dev, stream)] = ws
+    ws[2] = next_epoch(ws[2])
+    return ws[0], ws[1], ws[2]
 
 
 def pattern_bits(K: int, device=None, indicator: bool = True) -> torch.Tensor:
@@ -206,14 +283,17 @@ def grouped_block_update(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi
     delta = torch.empty(bs, dtype=torch.float32, device=dev)
     b_new = torch.empty_like(delta)
     incl = torch.empty_like(delta)
+    layout = k3_layout(bs, K)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tables, flags, epoch = _workspace(dev, stream, layout)
         _build.launch(
             "gbm_gibbs_group",
             Cb.data_ptr(), u.data_ptr(), b_blk.data_ptr(), s2_blk.data_ptr(),
             val_blk.data_ptr(), normals.data_ptr(), gum.data_ptr(), sig_e2.data_ptr(),
             pi_in.data_ptr(), delta.data_ptr(), b_new.data_ptr(), incl.data_ptr(),
-            bs, K, stream,
+            bs, K, tables.data_ptr(), flags.data_ptr(), epoch, layout.slice_floats,
+            layout.staged_quads, stream,
         )
     LAUNCHES["gibbs_group"] += 1
     return delta, b_new, incl

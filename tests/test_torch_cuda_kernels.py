@@ -129,26 +129,88 @@ def _gibbs_block(dev, bs, K, n=1000, n_invalid=0, seed=0):
             torch.tensor(0.9, device=dev), torch.tensor(0.1, device=dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bs,K", [(64, 8), (66, 6), (600, 6), (600, 8)])  # 64 at K=6: 66, as the chain rounds
-def test_gibbs_group_matches_plain_on_card(cuda_device, bs, K):
-    """K3 against its plain version on the same inputs and noise: the same
-    selections, and draws within 1e-4·max(1, max|b|). The two sum in other
-    orders (the plain version carries v/σ²ₑ, the kernel u − cdelta, with
-    fused multiply-adds), and the running correlation carries that rounding
-    through all bs/K groups."""
-    args = _gibbs_block(cuda_device, bs, K, n_invalid=3)
-    before = gibbs_group.LAUNCHES["gibbs_group"]
-    d, b_new, incl = gibbs_group.grouped_block_update(*args, K=K)
-    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
-    d_p, b_p, incl_p = gibbs_group.grouped_block_update_plain(*args, K=K)
-    torch.cuda.synchronize()
-    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
+def _assert_agree(out, ref, n_invalid=0):
+    """K3's (delta, b_new, incl) against the plain version's on the same
+    inputs and noise: identical selections, draws within 1e-4·max(1, max|b|),
+    invalid markers neither drawn nor included. The two sum in other orders
+    (the plain version carries v/σ²ₑ, the kernel u − cdelta, with fused
+    multiply-adds), and the running correlation carries that rounding through
+    all bs/K groups."""
+    (d, b_new, incl), (d_p, b_p, incl_p) = out, ref
     assert torch.equal(incl, incl_p)
     tol = 1e-4 * max(1.0, float(b_p.abs().max()))
     assert float((b_new - b_p).abs().max()) <= tol
     assert float((d - d_p).abs().max()) <= tol
-    assert not b_new[-3:].any() and not incl[-3:].any()
+    if n_invalid:
+        assert not b_new[-n_invalid:].any() and not incl[-n_invalid:].any()
+
+
+def _check_gibbs_group(args, K, n_invalid=0):
+    """One K3 launch, counted once (the plain version counts none), against
+    the plain version."""
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    out = gibbs_group.grouped_block_update(*args, K=K)
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
+    ref = gibbs_group.grouped_block_update_plain(*args, K=K)
+    torch.cuda.synchronize()
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 1
+    _assert_agree(out, ref, n_invalid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,K", [(64, 8), (66, 6), (600, 6), (600, 8)])  # 64 at K=6: 66, as the chain rounds
+def test_gibbs_group_matches_plain_on_card(cuda_device, bs, K):
+    """K3 against its plain version at the chain's block sizes, the last 3
+    markers invalid."""
+    _check_gibbs_group(_gibbs_block(cuda_device, bs, K, n_invalid=3), K, n_invalid=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", range(1, 9))
+def test_gibbs_group_every_k_on_card(cuda_device, K):
+    """K = 1…8 at a small block (5 groups, the last marker invalid): lanes
+    that hold no pattern (K ≤ 4), one pattern per lane (K = 5) and 2, 4 and 8
+    patterns per lane (K = 6, 7, 8)."""
+    _check_gibbs_group(_gibbs_block(cuda_device, 5 * K, K, n_invalid=1, seed=K), K, n_invalid=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n_invalid", [(1024, 5), (gibbs_group.MAX_BS, 7)])
+def test_gibbs_group_large_blocks_on_card(cuda_device, bs, n_invalid):
+    """bs=1024 at K=8, the largest `auto` block, stages every quad of the Cb
+    rows in shared memory; bs=MAX_BS stages the first quads and reads the
+    rest from L2, with the same arithmetic."""
+    lay = gibbs_group.k3_layout(bs, 8)
+    assert (lay.staged_quads == lay.quads) == (bs == 1024)
+    _check_gibbs_group(_gibbs_block(cuda_device, bs, 8, n_invalid=n_invalid, seed=bs), 8, n_invalid)
+
+
+@pytest.mark.cuda
+def test_gibbs_group_reused_workspace_on_card(cuda_device):
+    """Two launches in a row with different inputs on one workspace, each held
+    against the plain version: a flag left by the first launch must not pass
+    for the second's (the epoch differs), or the second would score the
+    first's tables."""
+    first = _gibbs_block(cuda_device, 600, 6, n_invalid=2, seed=11)
+    second = _gibbs_block(cuda_device, 600, 6, n_invalid=2, seed=12)
+    out1 = gibbs_group.grouped_block_update(*first, K=6)
+    out2 = gibbs_group.grouped_block_update(*second, K=6)
+    _assert_agree(out1, gibbs_group.grouped_block_update_plain(*first, K=6), 2)
+    _assert_agree(out2, gibbs_group.grouped_block_update_plain(*second, K=6), 2)
+    assert not torch.equal(out1[1], out2[1])
+
+
+@pytest.mark.cuda
+def test_gibbs_group_side_stream_on_card(cuda_device):
+    """A launch on a stream other than the default one, with its own workspace."""
+    args = _gibbs_block(cuda_device, 258, 6, n_invalid=5, seed=13)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = gibbs_group.grouped_block_update(*args, K=6)
+    torch.cuda.current_stream().wait_stream(side)
+    assert (args[0].device, side.cuda_stream) in gibbs_group._WORKSPACES
+    _assert_agree(out, gibbs_group.grouped_block_update_plain(*args, K=6), 5)
 
 
 @pytest.mark.cuda

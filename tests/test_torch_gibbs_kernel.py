@@ -236,3 +236,72 @@ def test_grouped_matches_scalar_oracle(ld_panel, model):
     else:
         assert np.corrcoef(b_s, b_g)[0, 1] > 0.95
         assert abs(s2_s - s2_g) / s2_s < 0.25
+
+
+# -- the CUDA kernel's geometry, computed in Python (the kernel itself runs
+# only on the card) ---------------------------------------------------------
+
+SMEM_MAX = 232_448  # bytes of shared memory one CTA may use on Hopper
+
+
+@pytest.mark.parametrize("bs,K", [(600, 6), (600, 8), (1024, 8), (gibbs_group.MAX_BS, 8), (258, 6),
+                                  (10, 1), (66, 6), (gibbs_group.MAX_BS, 1)])
+def test_k3_layout(bs, K):
+    """A group's slice is 16-byte aligned and holds W̃'s lower entries and the
+    constant of every pattern plus K² + 4K floats of scan inputs; shared
+    memory (3 slices, 3 stages of staged Cb quads, w, two output records and
+    the mbarriers) fits one CTA; every quad is staged up to bs=1024 at K=8."""
+    lay = gibbs_group.k3_layout(bs, K)
+    npat, G = 1 << K, bs // K
+    used = npat * (K * (K + 1) // 2 + 1) + K * K + 4 * K
+    assert lay.slice_floats % 4 == 0 and used <= lay.slice_floats < used + 4
+    assert lay.groups == G and lay.table_floats == G * lay.slice_floats
+    assert lay.quads == -(-bs // 4)
+    assert lay.builders == -(-G // max(1, 256 // npat))
+    assert lay.smem_bytes == 4 * (8 + 3 * lay.slice_floats + 4 * lay.quads + 6 * K) + 16 * 3 * K * lay.staged_quads
+    assert lay.smem_bytes <= SMEM_MAX
+    assert 0 <= lay.staged_quads <= lay.quads
+    # Staging stops only where one more quad would overflow shared memory.
+    assert lay.staged_quads == lay.quads or lay.smem_bytes + 16 * 3 * K > SMEM_MAX
+    assert (lay.staged_quads < lay.quads) == (bs == gibbs_group.MAX_BS and K == 8)
+
+
+def test_k3_layout_fits_every_block():
+    """Every block the wrapper takes (1 ≤ K ≤ 8, bs ≤ MAX_BS) fits shared memory."""
+    for K in range(1, gibbs_group.MAX_K + 1):
+        for bs in range(K, gibbs_group.MAX_BS + 1, 61 * K):
+            lay = gibbs_group.k3_layout(bs, K)
+            assert lay.smem_bytes <= SMEM_MAX and lay.staged_quads >= 0, (bs, K)
+
+
+def test_next_epoch_never_zero():
+    """A fresh flag is 0; the epoch runs 1 … 2³¹−1 and wraps to 1, within int32."""
+    assert gibbs_group.next_epoch(0) == 1
+    assert gibbs_group.next_epoch(41) == 42
+    assert gibbs_group.next_epoch(2**31 - 1) == 1
+    e = 2**31 - 3
+    for _ in range(5):
+        e = gibbs_group.next_epoch(e)
+        assert 0 < e < 2**31
+
+
+def test_workspace_per_stream_grows_and_counts_epochs():
+    """One workspace per (device, stream), reused from call to call with the
+    next epoch; grown, with fresh zero flags, when a layout needs more."""
+    dev, spaces = torch.device("cpu"), gibbs_group._WORKSPACES
+    small, big = gibbs_group.k3_layout(60, 6), gibbs_group.k3_layout(600, 8)
+    try:
+        t1, f1, e1 = gibbs_group._workspace(dev, 1, small)
+        t2, f2, e2 = gibbs_group._workspace(dev, 1, small)
+        assert (e1, e2) == (1, 2) and t2 is t1 and f2 is f1
+        assert t1.numel() == small.table_floats and f1.numel() == small.builders
+        _, _, e_other = gibbs_group._workspace(dev, 2, small)
+        assert e_other == 1
+        t3, f3, e3 = gibbs_group._workspace(dev, 1, big)
+        assert t3.numel() == big.table_floats and f3.numel() == big.builders
+        assert e3 == 1 and not f3.any()
+        t4, _, e4 = gibbs_group._workspace(dev, 1, small)  # a smaller block keeps the larger one
+        assert t4 is t3 and e4 == 2
+    finally:
+        spaces.pop((dev, 1), None)
+        spaces.pop((dev, 2), None)
