@@ -44,12 +44,18 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    card ("grouped"): GEBV correlation >= 0.98, sigma_e2 posterior means within
    25 %;
 9. the public API again: `bayesc` (K3) and `bayesian_ridge` (joint block
-   draw, no kernel) on phase 6's panel -> `predict`.
+   draw, no kernel) on phase 6's panel -> `predict`;
+10. cross-validation (`cv_phase`): `cvbulk_batched` and `cvbulk` on the card
+   against device="cpu" at 256x2048, the JAX bench's `cv` cell at 2048x32768
+   cold and warm, `cvbulk` over six models at that width (K2 and K3 launched
+   by the jobs) and again with two workers, and `validate`'s leakage check.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
 held against its plain version once more, on the first block of phase 7's
-chain as the chain called it, and phase 7's panel goes through the profiler.
+chain as the chain called it. Phase 10 runs with the counters reset again
+and read after it, and every kernel must have launched there too. Then
+phase 7's panel goes through the profiler.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failed check raises, so the script exits non-zero and
 prints no result. TF32 is off for every float32 matmul (the plain versions
@@ -88,6 +94,10 @@ COR_MIN = 0.9999  # gblup y_pred on the card vs device="cpu"
 # fused multiply-adds, the plain version v / sigma_e2), and the running
 # correlation carries that float32 rounding through all bs/K groups of a block.
 K3_TOL = 1e-4
+# Phase 10: CV on the card against device="cpu" (pooled y_pred correlation
+# per model; ridge/gblup per-fold max |Δ y_pred| over std(y)), and
+# n_workers=2 against n_workers=1 (max |Δ y_pred| over max |y_pred|).
+CV_COR_MIN, CV_DUAL_TOL, WORKERS_TOL = 0.999, 1e-3, 1e-4
 # BASELINE config 3 as bench.py:389-406 builds it: bs=600 divides p, no padding.
 N_BIG, P_BIG, BS_BIG, SWEEPS_BIG, BURN_BIG = 10_000, 102_000, 600, 60, 10
 # Published dense peaks of one H100 SXM at 700 W (operations/s) and its HBM rate (bytes/s).
@@ -264,6 +274,170 @@ def k3_check(args: list, K: int, label: str) -> float:
     return err
 
 
+def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
+    """Phase 10, cross-validation on the card, with the launch counters set
+    to 0 just before it; returns the counts it launched. `width` is (n, p)
+    of parts (b)-(c); a rehearsal on the host passes a small one.
+
+    (a) at n=256, p=2048 (simulated, called to {0, ½, 1}, so gblup's GRM
+    takes K1): `cvbulk_batched` (ridge, gblup, lasso) and `cvbulk` (ols,
+    ridge, lasso, gblup), each on the card and with device="cpu": the same
+    tags and validation entries, pooled y_pred correlation >= CV_COR_MIN per
+    model, ridge and gblup per fold within CV_DUAL_TOL·std(y);
+    (b) the JAX bench's `cv` cell (bench.py:610-659): 2048x32768 uniform
+    panel from rng(11), 1 % causal, ridge/gblup/lasso, 3x5 folds,
+    store_effects=False, cold (device caches cleared) then warm, with
+    LAST_TIMER's stage split;
+    (c) `cvbulk` at the same width, 1x5 folds, one call per model (ols,
+    ridge, lasso, gblup, bayesc, mlp; chains cut to 200 sweeps, 50 burn-in):
+    30 CVs, no model-fitting warning, K2 and K3 launched by these calls;
+    then ridge and bayesc again with n_workers=2, each y_pred within
+    WORKERS_TOL·max|y_pred| of the n_workers=1 run;
+    (d) `validate` raises on a train/validation overlap.
+    """
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.cv import batched as cv_batched
+    from genomicbreedingmodels_tpu_torch.utils import config
+
+    def keys(cvs):
+        return [(cv.fit.trait, cv.fit.model, cv.replication, cv.fold) for cv in cvs]
+
+    def harness_warnings(rec):
+        msgs = [str(w.message) for w in rec]
+        return [m for m in msgs if "model-fitting error" in m or "cross-validation error" in m], msgs
+
+    def run(fn, *args, **kw):
+        """fn(*args, **kw) with its warnings recorded and its wall seconds
+        (the call ends in read-backs); fails on a harness warning."""
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        bad, msgs = harness_warnings(rec)
+        for m in msgs:
+            print(f"  warning: {m[:200]}")
+        check(not bad, f"{getattr(fn, '__name__', fn)}: no model-fitting warning")
+        return out, t
+
+    gbm.reset_launches()
+
+    # -- (a) exactness at small size: the card against device="cpu" --------------
+    g = gbm.simulate_genomes(n=256, l=2048, seed=5)
+    trials, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=5)
+    ph = gbm.extract_phenomes(trials)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.rint(2.0 * g.allele_frequencies) / 2.0)
+    sd = float(np.std(ph.phenotypes[:, 0]))
+    for label, fn, models in (("cvbulk_batched", gbm.cvbulk_batched, ("ridge", "gblup", "lasso")),
+                              ("cvbulk", gbm.cvbulk, ("ols", "ridge", "lasso", "gblup"))):
+        (card_cvs, _), t_card = run(fn, g, ph, models=models, n_replications=1, n_folds=3, seed=7,
+                                    device=dev)
+        (cpu_cvs, _), t_cpu = run(fn, g, ph, models=models, n_replications=1, n_folds=3, seed=7,
+                                  device="cpu")
+        check(keys(card_cvs) == keys(cpu_cvs) and len(card_cvs) == 3 * len(models),
+              f"{label} 256x2048: the same CV tags on the card and the CPU")
+        check(all(np.array_equal(a.validation_entries, b.validation_entries)
+                  for a, b in zip(card_cvs, cpu_cvs)), f"{label} 256x2048: the same validation entries")
+        parts, verdicts = [], []
+        for m in models:
+            pairs = [(a, b) for a, b in zip(card_cvs, cpu_cvs) if a.fit.model == m]
+            ya = np.concatenate([a.y_pred for a, _ in pairs])
+            yb = np.concatenate([b.y_pred for _, b in pairs])
+            cor = float(np.corrcoef(ya, yb)[0, 1])
+            dmax = max(float(np.abs(a.y_pred - b.y_pred).max()) for a, b in pairs) / sd
+            parts.append(f"{m} cor={cor:.6f} max|Δ|/sd={dmax:.3g}")
+            verdicts.append((np.all(np.isfinite(ya)) and cor >= CV_COR_MIN, f"{label} {m}: card vs cpu cor"))
+            if m in ("ridge", "gblup"):
+                verdicts.append((dmax <= CV_DUAL_TOL, f"{label} {m}: card vs cpu per fold"))
+        print(f"CV (a) {label} 256x2048 called, 1x3 folds, card vs device='cpu': " + "; ".join(parts)
+              + f"; card {t_card:.3f} s, cpu {t_cpu:.3f} s {card}")
+        for ok, what in verdicts:
+            check(ok, what)
+
+    # -- (b) the bench's cv cell at full width ----------------------------------------
+    (n, p), reps, folds = width, 3, 5
+    models = ("ridge", "gblup", "lasso")
+    rng = np.random.default_rng(11)
+    freq = rng.uniform(size=(n, p)).astype(np.float32)
+    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
+                    populations=np.array(["pop_1"] * n),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
+                    allele_frequencies=freq)
+    beta = rng.normal(size=p) * (rng.uniform(size=p) < 0.01)
+    yy = freq @ beta
+    yy = yy + rng.normal(size=n) * yy.std()
+    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                     phenotypes=yy[:, None])
+    gbm.clear_device_caches()
+    before = dict(gbm.LAUNCHES)
+    for call in ("cold", "warm"):
+        (cvs, _), t = run(gbm.cvbulk_batched, G, P, models=models, n_replications=reps, n_folds=folds,
+                          store_effects=False, device=dev)
+        split = " ".join(f"{k}={v['total_s']:.3f}s" for k, v in cv_batched.LAST_TIMER.summary().items())
+        print(f"CV (b) cvbulk_batched {n}x{p} {reps}x{folds} folds x {len(models)} models, {call}: "
+              f"{t:.3f} s ({split}) {card}")
+        check(len(cvs) == reps * folds * len(models), f"cv cell {call}: 45 CVs")
+        check(all(np.isfinite(cv.metrics["cor"]) and np.all(np.isfinite(cv.y_pred)) for cv in cvs),
+              f"cv cell {call}: finite metrics")
+    cors = {m: float(np.mean([cv.metrics["cor"] for cv in cvs if cv.fit.model == m])) for m in models}
+    print("CV (b) mean validation cor: " + " ".join(f"{m}={c:.4f}" for m, c in cors.items())
+          + f"; K2 launches {gbm.LAUNCHES['gram_tri_float'] - before['gram_tri_float']}")
+
+    # -- (c) the executor at the same width ---------------------------------------------
+    cfg = config.get_config()
+    config.set_config(dataclasses.replace(cfg, mcmc_n_iter=200, mcmc_n_burnin=50))
+    try:
+        before = dict(gbm.LAUNCHES)
+        one = {}
+        for m in ("ols", "ridge", "lasso", "gblup", "bayesc", "mlp"):
+            k0 = dict(gbm.LAUNCHES)
+            (cvs, _), t = run(gbm.cvbulk, G, P, models=[m], n_replications=1, n_folds=5, seed=3,
+                              n_workers=1, device=dev)
+            one[m] = cvs
+            ks = {k: gbm.LAUNCHES[k] - k0[k] for k in k0 if gbm.LAUNCHES[k] > k0[k]}
+            cor = float(np.mean([cv.metrics["cor"] for cv in cvs]))
+            print(f"CV (c) cvbulk {m} {n}x{p} 1x5 folds: {t:.3f} s ({t / 5:.3f} s per fit+validate), "
+                  f"mean validation cor {cor:.4f}, launches {ks} {card}")
+        launched = {k: gbm.LAUNCHES[k] - before[k] for k in before}
+        check(sum(len(c) for c in one.values()) == 30, "cvbulk at width: 30 CVs")
+        if torch.device(dev).type == "cuda":  # (a host rehearsal launches no kernel)
+            check(launched["gram_tri_float"] > 0 and launched["gibbs_group"] > 0,
+                  "cvbulk at width launched K2 and K3")
+        (two, _), t2 = run(gbm.cvbulk, G, P, models=["ridge", "bayesc"], n_replications=1, n_folds=5,
+                           seed=3, n_workers=2, device=dev)
+    finally:
+        config.set_config(cfg)
+    check(len(two) == 10, "n_workers=2: 10 CVs")
+    worst = 0.0
+    for cv in two:
+        ref = next(c for c in one[cv.fit.model] if c.fold == cv.fold)
+        check(np.array_equal(ref.validation_entries, cv.validation_entries), "n_workers=2: same folds")
+        worst = max(worst, float(np.abs(cv.y_pred - ref.y_pred).max() / np.abs(ref.y_pred).max()))
+    print(f"CV (c) ridge+bayesc n_workers=2: {t2:.3f} s, max|Δ y_pred|/max|y_pred| against "
+          f"n_workers=1 {worst:.3g} {card}")
+    check(worst <= WORKERS_TOL, "n_workers=2 equals n_workers=1")
+
+    # -- (d) validate refuses leakage on the card ------------------------------------------
+    fit = one["ridge"][0].fit
+    try:
+        gbm.validate(fit, G, P, idx_validation=G.entry_indices(fit.entries[:5].tolist()), device=dev)
+        leak_raised = False
+    except ValueError as err:
+        leak_raised = "data leakage" in str(err)
+    check(leak_raised, "validate raises on train/validation overlap")
+    print("CV (d) validate on overlapping entries: raised the leakage error")
+
+    return dict(gbm.LAUNCHES)
+
+
 def main() -> int:
     import torch
 
@@ -293,6 +467,7 @@ def main() -> int:
         gram_dosage_lower,
     )
 
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -655,6 +830,13 @@ def main() -> int:
     k3_errs.append(k3_check(first_block[:9], first_block[9], "at-size chain, first block"))
     records["gibbs_group"]["max_abs_err"] = max(k3_errs)
 
+    # -- 10. cross-validation, counters from zero -----------------------------------
+    t0 = time.perf_counter()
+    cv_launches = cv_phase(gbm, dev, card)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s; launches in phase 10: {cv_launches}")
+    for name, count in cv_launches.items():
+        check(count > 0, f"{name} launched in phase 10")
+
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
     # The profiler slows the host, so the device time is also set against
@@ -689,11 +871,12 @@ def main() -> int:
                         "genomicbreedingmodels_tpu/ops/pallas_gibbs.py:63"),
     }
     records["gram_tri_float"]["shapes"] = k2_shapes
-    kernels = [
+    kernels = [  # launches: phases 5-9 and phase 10, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **records[name]}
+         "launches": launches[name] + cv_launches[name], **records[name]}
         for name, (src, rep) in sources.items()
     ]
+    print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s from the first check to here {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,17 @@ by path. It imports torch and numpy, never jax and never the JAX package.
 Covered so far: the GBLUP main path — data layer, simulators, GRM (exact int8
 dosage Gram K1 and f32/bf16 Gram K2, hand-written CUDA kernels for Hopper),
 the lower-triangle GBLUP solve, REML variance components, `gblup`, `predict`
-and `metrics` — and the Bayesian alphabet (`gibbs_regression`, `bglr`,
+and `metrics`; the Bayesian alphabet (`gibbs_regression`, `bglr`,
 `bayesian` and the eight model functions), whose indicator models run the
-grouped Gibbs block update K3 as a hand-written CUDA kernel. Every public
-entry point takes `device=` (default "cuda"); `device="cpu"` runs the
-kernels' plain PyTorch versions.
+grouped Gibbs block update K3 as a hand-written CUDA kernel; the linear zoo
+(`ols`, `ridge`, `lasso`), the MLP, and cross-validation (`validate`,
+`cvbulk` and its population modes, `cvbulk_batched` for ridge/gblup/lasso,
+`tabularise`/`summarise`). Every public entry point takes `device=`
+(default "cuda"); `device="cpu"` runs the kernels' plain PyTorch versions.
 """
 
 from .core.structs import (
+    CV,
     Fit,
     Genomes,
     Phenomes,
@@ -45,11 +48,27 @@ from .models.bayesian import (
     bglr,
     gibbs_regression,
 )
+from .models.linear import lasso, ols, ridge
+from .models.mlp import mlp
+from .core.tabularise import summarise, tabularise
+from .cv.harness import (
+    MODEL_REGISTRY,
+    cvbulk,
+    cvdispatch,
+    cvleaveonepopulationout,
+    cvmultithread,
+    cvpairwisepopulation,
+    cvperpopulation,
+    validate,
+)
+from .cv.batched import cvbulk_batched
+from .utils.devcache import clear_device_caches
 from .kernels._build import LAUNCHES, reset_launches
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "CV",
     "Fit",
     "Genomes",
     "Phenomes",
@@ -84,6 +103,22 @@ __all__ = [
     "bayest",
     "bayestpi",
     "BAYESIAN_MODELS",
+    "ols",
+    "ridge",
+    "lasso",
+    "mlp",
+    "MODEL_REGISTRY",
+    "validate",
+    "cvdispatch",
+    "cvmultithread",
+    "cvbulk",
+    "cvbulk_batched",
+    "cvperpopulation",
+    "cvpairwisepopulation",
+    "cvleaveonepopulationout",
+    "tabularise",
+    "summarise",
+    "clear_device_caches",
     "LAUNCHES",
     "reset_launches",
 ]

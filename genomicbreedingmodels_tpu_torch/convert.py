@@ -2,17 +2,26 @@
 
 Each function reads the JAX package's object by attribute, as numpy arrays,
 and builds the port's dataclass. Nothing here imports the JAX package: the
-caller hands the object over. A `Fit` fitted by the JAX `gblup` then predicts
-through the port's `predict` as it does through the JAX one.
+caller hands the object over. A `Fit` fitted by the JAX `gblup` or `mlp`
+then predicts through the port's `predict` as it does through the JAX one,
+and a list of JAX `CV`s goes through the port's `tabularise`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .core.structs import Fit, Genomes, Phenomes
+from .core.structs import CV, Fit, Genomes, Phenomes
+from .device import resolve_device
 
-__all__ = ["fit_from_reference", "genomes_from_reference", "phenomes_from_reference"]
+__all__ = [
+    "cv_from_reference",
+    "fit_from_reference",
+    "genomes_from_reference",
+    "mlp_from_params",
+    "phenomes_from_reference",
+]
 
 
 def genomes_from_reference(obj) -> Genomes:
@@ -48,3 +57,33 @@ def fit_from_reference(obj) -> Fit:
         metrics=dict(obj.metrics),
         extras=dict(obj.extras),
     )
+
+
+def cv_from_reference(obj) -> CV:
+    return CV(
+        replication=str(obj.replication),
+        fold=str(obj.fold),
+        fit=fit_from_reference(obj.fit),
+        validation_populations=np.asarray(obj.validation_populations),
+        validation_entries=np.asarray(obj.validation_entries),
+        y_true=np.asarray(obj.y_true),
+        y_pred=np.asarray(obj.y_pred),
+        metrics=dict(obj.metrics),
+    )
+
+
+def mlp_from_params(params, device="cuda"):
+    """The port's `models.mlp.MLP` holding `params`, the JAX layout of
+    `fit.extras["params"]`: a list of (W (din, dout), b) pairs, numpy or any
+    array type numpy reads."""
+    from .models.mlp import MLP
+
+    pairs = [(np.array(W, dtype=np.float32), np.array(b, dtype=np.float32)) for W, b in params]
+    sizes = [pairs[0][0].shape[0], *[W.shape[1] for W, _ in pairs]]
+    net = MLP(sizes).to(resolve_device(device))
+    with torch.no_grad():
+        for layer, (W, b) in zip(net.layers, pairs):
+            layer.weight.copy_(torch.from_numpy(W.T.copy()))
+            layer.bias.copy_(torch.from_numpy(b))
+    net.eval()
+    return net

@@ -1,9 +1,8 @@
-"""Core data model: Genomes, Phenomes, Trials, SimulatedEffects, Fit.
+"""Core data model: Genomes, Phenomes, Trials, SimulatedEffects, Fit, CV.
 
 Copied from genomicbreedingmodels_tpu/core/structs.py (numpy only, so the
-port never imports the JAX package). The CV container stays behind until the
-CV harness is ported. Design differences from the reference data layer
-(GenomicBreedingCore.jl):
+port never imports the JAX package). Design differences from the reference
+data layer (GenomicBreedingCore.jl):
 
 - Numeric payloads (`allele_frequencies`, `phenotypes`) are dense float arrays
   (numpy on host; converted to torch tensors on the requested device at the
@@ -31,6 +30,7 @@ __all__ = [
     "Trials",
     "SimulatedEffects",
     "Fit",
+    "CV",
     "checkdims",
     "slice_genomes",
     "slice_phenomes",
@@ -260,6 +260,35 @@ class Fit:
             len(self.b_hat) == len(self.b_hat_labels)
             and len(self.entries) == len(self.populations)
             and len(self.y_true) == len(self.y_pred)
+        )
+
+
+@dataclass
+class CV:
+    """One cross-validation job result (reference CV struct, src/cross_validation.jl:79)."""
+
+    replication: str
+    fold: str
+    fit: Fit
+    validation_populations: np.ndarray
+    validation_entries: np.ndarray
+    y_true: np.ndarray
+    y_pred: np.ndarray
+    metrics: Dict[str, float]
+
+    def __post_init__(self):
+        self.validation_populations = _as_str_array(self.validation_populations)
+        self.validation_entries = _as_str_array(self.validation_entries)
+        self.y_true = np.asarray(self.y_true, dtype=np.float64)
+        self.y_pred = np.asarray(self.y_pred, dtype=np.float64)
+
+    def checkdims(self) -> bool:
+        m = len(self.validation_entries)
+        return (
+            len(self.validation_populations) == m
+            and len(self.y_true) == m
+            and len(self.y_pred) == m
+            and self.fit.checkdims()
         )
 
 

@@ -15,8 +15,10 @@ Each C entry point takes raw device pointers, the sizes and the CUDA stream
 gives each entry point its own ctypes signature.
 
 `LAUNCHES` counts kernel launches by name, for every wrapper of the port:
-a wrapper adds one where it launches its kernel and nowhere else, so a run
-can show that its main path went through the kernels.
+a wrapper adds one (`count_launch`) where it launches its kernel and nowhere
+else, so a run can show that its main path went through the kernels. The
+count is taken under `LAUNCH_LOCK`, so jobs that launch from several host
+threads (the CV executor's workers) lose none.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "NVCC_FLAGS", "build", "launch", "load", "reset_launches"]
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "LAUNCH_LOCK", "NVCC_FLAGS", "build", "count_launch",
+           "launch", "load", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]  # the checkout, when the package sits in one
@@ -56,14 +59,25 @@ _ENTRY_POINTS = {
 
 # Kernel launches by the wrappers (CUDA tensors only; plain versions never count).
 LAUNCHES = {"gram_tri_int8": 0, "gram_tri_float": 0, "gibbs_group": 0}
+# Guards LAUNCHES, and K3's per-stream workspaces with their epochs
+# (kernels/gibbs_group.py), which must change together with the count.
+# Re-entrant: K3's wrapper counts inside its workspace section.
+LAUNCH_LOCK = threading.RLock()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+def count_launch(name: str) -> None:
+    """One more launch of kernel `name` (a read-modify-write, hence the lock)."""
+    with LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _sources() -> list[Path]:

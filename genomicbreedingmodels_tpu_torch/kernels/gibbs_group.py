@@ -16,7 +16,8 @@ correlation of the later groups (exact partially-collapsed blocked Gibbs).
   in shared memory); the wrapper raises beyond, on every device.
 - The kernel's builder CTAs write every group's pattern tables into a
   workspace that the wrapper keeps per device and stream (`_workspace`,
-  grown from PyTorch's allocator, never freed), each builder CTA publishes
+  grown from PyTorch's allocator, never freed, taken with its epoch under
+  `_build.LAUNCH_LOCK` since host threads share a stream), each builder CTA publishes
   one ready flag for its groups, and the scan CTA reads a group's tables
   once that flag carries this launch's epoch (`next_epoch`).
   `k3_layout` gives the workspace's and the shared memory's geometry.
@@ -39,7 +40,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
-from ._build import LAUNCHES
+from ._build import LAUNCH_LOCK, LAUNCHES
 
 __all__ = [
     "LAUNCHES",
@@ -115,14 +116,20 @@ _WORKSPACES: dict = {}
 def _workspace(dev: torch.device, stream: int, layout: K3Layout):
     """This (device, stream)'s workspace, grown to `layout`, and the epoch of
     the launch about to use it. Launches on one stream run in order, so one
-    stream's launches never race on it; each stream has its own."""
-    ws = _WORKSPACES.get((dev, stream))
-    if ws is None or ws[0].numel() < layout.table_floats or ws[1].numel() < layout.builders:
-        ws = [torch.empty(layout.table_floats, dtype=torch.float32, device=dev),
-              torch.zeros(layout.builders, dtype=torch.int32, device=dev), 0]
-        _WORKSPACES[(dev, stream)] = ws
-    ws[2] = next_epoch(ws[2])
-    return ws[0], ws[1], ws[2]
+    stream's launches never race on it; each stream has its own.
+
+    Host threads share a stream (every thread's default stream is the same
+    one), so the lookup, the growth and the epoch bump are one critical
+    section under `LAUNCH_LOCK`: two launches never get one epoch, which
+    would let the second one's scan read the first one's tables as ready."""
+    with LAUNCH_LOCK:
+        ws = _WORKSPACES.get((dev, stream))
+        if ws is None or ws[0].numel() < layout.table_floats or ws[1].numel() < layout.builders:
+            ws = [torch.empty(layout.table_floats, dtype=torch.float32, device=dev),
+                  torch.zeros(layout.builders, dtype=torch.int32, device=dev), 0]
+            _WORKSPACES[(dev, stream)] = ws
+        ws[2] = next_epoch(ws[2])
+        return ws[0], ws[1], ws[2]
 
 
 def pattern_bits(K: int, device=None, indicator: bool = True) -> torch.Tensor:
@@ -284,7 +291,9 @@ def grouped_block_update(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi
     b_new = torch.empty_like(delta)
     incl = torch.empty_like(delta)
     layout = k3_layout(bs, K)
-    with torch.cuda.device(dev):
+    # One critical section from the workspace lookup to the count: a
+    # stream's launches then also enqueue in the order of their epochs.
+    with torch.cuda.device(dev), LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         tables, flags, epoch = _workspace(dev, stream, layout)
         _build.launch(
@@ -295,5 +304,5 @@ def grouped_block_update(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi
             bs, K, tables.data_ptr(), flags.data_ptr(), epoch, layout.slice_floats,
             layout.staged_quads, stream,
         )
-    LAUNCHES["gibbs_group"] += 1
+        _build.count_launch("gibbs_group")
     return delta, b_new, incl

@@ -10,8 +10,9 @@ Contract of both wrappers: the result is (n, n) with the lower triangle
 
 - A CUDA tensor goes to the hand-written Hopper kernel in `csrc/` (built by
   nvcc at first use, see `_build.py`), launched on the current stream, and
-  the kernel's entry in `LAUNCHES` goes up by one. A failed build or launch
-  raises. Both kernels are one mainloop (`csrc/gram_tri_sm90.cuh`): TMA
+  the kernel's entry in `LAUNCHES` goes up by one (`_build.count_launch`).
+  A failed build or launch raises. Both kernels are one mainloop
+  (`csrc/gram_tri_sm90.cuh`): TMA
   loads into a shared-memory ring, wgmma on the tensor cores, persistent
   CTAs walking the lower-triangular tiles in the order `tile_order` gives,
   each tile's markers split as `marker_splits` says (`tile_schedule`).
@@ -200,7 +201,7 @@ def gram_tri_int8(D: torch.Tensor, ploidy: int = 2) -> torch.Tensor:
     out = torch.zeros((n, n), dtype=torch.int32, device=D.device)
     if n and p:
         _launch("gbm_gram_tri_int8", D, out)
-        LAUNCHES["gram_tri_int8"] += 1
+        _build.count_launch("gram_tri_int8")
     return out
 
 
@@ -232,5 +233,5 @@ def gram_tri_float(X: torch.Tensor) -> torch.Tensor:
     if n and p:
         entry = "gbm_gram_tri_f32" if X.dtype == torch.float32 else "gbm_gram_tri_bf16"
         _launch(entry, X, out)
-        LAUNCHES["gram_tri_float"] += 1
+        _build.count_launch("gram_tri_float")
     return out

@@ -4,3 +4,5 @@ from .bayesian import (
     bglr, bayesa, bayesb, bayesc, bayesian, bayesian_ridge, bayesian_lasso, bayesian_lasso_pi,
     bayest, bayestpi, gibbs_regression,
 )
+from .linear import lasso, ols, ridge
+from .mlp import mlp

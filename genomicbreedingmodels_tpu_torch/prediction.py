@@ -141,7 +141,8 @@ def predict(
     fit: Fit, genomes: Genomes, idx_entries: Sequence[int], device="cuda"
 ) -> np.ndarray:
     """ŷ = b₀ + X[idx, model-loci] · b (reference src/prediction.jl:225-228),
-    one f32 GEMV on `device`. Linear models only for now."""
+    one f32 GEMV on `device`; for an MLP fit, the network's forward pass on
+    `device`."""
     if not fit.checkdims():
         raise ValueError("the Fit struct is corrupted")
     if not genomes.checkdims():
@@ -161,8 +162,8 @@ def predict(
             device=device,
         )
     if fit.model in NON_LINEAR_MODELS:
-        raise NotImplementedError(
-            f"predict for {fit.model!r} is not ported yet: it arrives with models/mlp.py "
-            "in the periphery slice of the port (ROADMAP queue A, step 12)"
-        )
+        from .models.mlp import mlp_predict_from_fit
+
+        G = genomes.allele_frequencies[np.ix_(idx_e, idx_l)]
+        return mlp_predict_from_fit(fit, G, device=device)
     raise ValueError(f"unrecognised genomic prediction model: {fit.model!r}")

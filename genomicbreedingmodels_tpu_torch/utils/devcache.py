@@ -30,7 +30,7 @@ def clear_device_caches() -> int:
     """Empty every device-reuse cache slot; returns how many held a value."""
     n = 0
     for c in _REGISTRY:
-        if c._value is not None:
+        if c._slot is not None:
             n += 1
         c.clear()
     return n
@@ -50,17 +50,21 @@ def host_fingerprint(arr) -> Tuple:
 
 
 class SingleSlotCache:
+    """The slot is one (key, value) tuple, replaced whole: a reader in another
+    thread (the CV executor's workers) sees the old pair or the new one,
+    never one pair's key with the other's value."""
+
     def __init__(self) -> None:
-        self._key: Optional[Tuple] = None
-        self._value: Any = None
+        self._slot: Optional[Tuple[Tuple, Any]] = None
         _REGISTRY.append(self)
 
     def get(self, key: Tuple) -> Any:
-        return self._value if key == self._key else None
+        slot = self._slot
+        return slot[1] if slot is not None and slot[0] == key else None
 
     def put(self, key: Tuple, value: Any) -> Any:
-        self._key, self._value = key, value
+        self._slot = (key, value)
         return value
 
     def clear(self) -> None:
-        self._key, self._value = None, None
+        self._slot = None

@@ -214,9 +214,68 @@ def test_gibbs_group_side_stream_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_gibbs_group_two_threads_one_stream_on_card(cuda_device):
+    """Two host threads launch K3 on the one default stream, 200 launches
+    each on their own inputs: every result equals its plain version, and the
+    count went up by exactly 400 (the workspace epoch and the count are
+    taken under one lock; with a shared epoch a launch could read the other
+    thread's tables as ready)."""
+    import threading
+
+    blocks = [_gibbs_block(cuda_device, 258, 6, n_invalid=2, seed=20 + t) for t in range(2)]
+    refs = [gibbs_group.grouped_block_update_plain(*b, K=6) for b in blocks]
+    torch.cuda.synchronize()
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    outs = [[], []]
+
+    def worker(t):
+        for _ in range(200):
+            outs[t].append(gibbs_group.grouped_block_update(*blocks[t], K=6))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + 400
+    for t in range(2):
+        assert len(outs[t]) == 200
+        for out in outs[t]:
+            _assert_agree(out, refs[t], 2)
+
+
+@pytest.mark.cuda
 def test_gibbs_group_wrapper_rejects_bad_inputs_on_card(cuda_device):
     args = list(_gibbs_block(cuda_device, 60, 6))
     with pytest.raises(ValueError, match="Cb on"):
         gibbs_group.grouped_block_update(*args[:7], args[7].cpu(), args[8], K=6)
     with pytest.raises(ValueError, match="K <= 8"):
         gibbs_group.grouped_block_update(*args, K=10)
+
+
+@pytest.mark.cuda
+def test_gblup_training_fold_on_card_matches_cpu(cuda_device):
+    """gblup on a 162-entry training fold of a 256x2048 panel called to
+    {0, 1/2, 1} (K1 for the GRM): REML's σ² within 1e-3 relative and the
+    validation y_pred within 1e-3·std(y) of device="cpu" (1.2e-4 measured
+    on an H100). The card's eigendecomposition runs in f64; in f32 this
+    fold's σ²ₑ moved by 25 % and y_pred by 0.06·std(y)."""
+    import numpy as np
+
+    import genomicbreedingmodels_tpu_torch as gbm
+    from genomicbreedingmodels_tpu_torch.cv import harness
+
+    g = gbm.simulate_genomes(n=256, l=2048, seed=5)
+    trials, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=5)
+    ph = gbm.extract_phenomes(trials)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.rint(2.0 * g.allele_frequencies) / 2.0)
+    job = harness._cvbulk_jobs(g, ph, ["gblup"], 1, 3, 7)[0][1]
+    assert len(job["idx_training"]) == 162
+    fits = {d: gbm.gblup(g, ph, idx_entries=job["idx_training"], device=d) for d in ("cuda", "cpu")}
+    for k in ("sigma2_e", "sigma2_u"):
+        assert abs(fits["cuda"].extras[k] - fits["cpu"].extras[k]) <= 1e-3 * abs(fits["cpu"].extras[k]), k
+    preds = {d: gbm.predict(f, g, job["idx_validation"], device=d) for d, f in fits.items()}
+    assert np.abs(preds["cuda"] - preds["cpu"]).max() <= 1e-3 * np.std(ph.phenotypes[:, 0])

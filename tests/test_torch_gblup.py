@@ -142,8 +142,8 @@ def test_predict_errors(sim_small):
     fit = convert.fit_from_reference(gj.gblup(genomes, phenomes, idx_entries=IDX_TRAIN))
     with pytest.raises(IndexError):
         gt.predict(fit, g, [0, 1000], device=CPU)
-    fit.model = "mlp"
-    with pytest.raises(NotImplementedError, match="mlp"):
+    fit.model = "mlp"  # a linear Fit relabelled: no network to predict with
+    with pytest.raises(ValueError, match="'mlp' Fit carries no network"):
         gt.predict(fit, g, IDX_TEST, device=CPU)
     fit.model = "nonsense"
     with pytest.raises(ValueError, match="unrecognised"):

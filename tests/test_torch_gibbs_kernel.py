@@ -305,3 +305,36 @@ def test_workspace_per_stream_grows_and_counts_epochs():
     finally:
         spaces.pop((dev, 1), None)
         spaces.pop((dev, 2), None)
+
+
+def test_workspace_epochs_distinct_under_threads():
+    """8 threads × 500 workspace requests on one (device, stream) key, with a
+    tiny switch interval: every request gets its own epoch and together they
+    are 1 … 4000 (a lost update would repeat an epoch, and two launches with
+    one epoch let the second one's scan read the first one's tables)."""
+    import sys
+    import threading
+
+    dev, key = torch.device("cpu"), 7
+    lay = gibbs_group.k3_layout(60, 6)
+    got = [[] for _ in range(8)]
+
+    def worker(out):
+        for _ in range(500):
+            out.append(gibbs_group._workspace(dev, key, lay)[2])
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(g,)) for g in got]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+        gibbs_group._WORKSPACES.pop((dev, key), None)
+    epochs = sorted(e for g in got for e in g)
+    assert epochs == list(range(1, 4001))
+    assert all(g == sorted(g) for g in got)  # each thread's epochs increase
