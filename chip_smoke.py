@@ -9,8 +9,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    prints each kernel's registers and spills from ptxas and, where cuobjdump
    exists, its count of wgmma (IGMMA / HGMMA) and TMA (UTMALDG) instructions;
 3. K1 (`gram_tri_int8`) against its plain version: bit-equal, strict upper
-   triangle zero, exactly symmetric once mirrored; on random dosages and on
-   the called panel's own training dosages that phase 6's `gblup` uses;
+   triangle zero, exactly symmetric once mirrored; on random dosages (one
+   shape with two groups of the tile order and marker splits) and on the
+   called panel's own training dosages that phase 6's `gblup` uses;
    timed at 8192x262144 beside its bound and `torch._int_mm(D, D.t())`;
 4. K2 (`gram_tri_float`, f32 and bf16) against its plain version (a float64
    product): max |err| <= 1e-5 · max|G|; on random panels and on phase 6's
@@ -40,7 +41,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    `torch.profiler`: the device's busy share (kernel time over the call's
    wall time) and K3's share of kernel time;
 8. chain-level agreement on the bench's ESS panel (512 x 4096): BayesC for
-   400 sweeps through K3 ("auto") and through the plain grouped draw on the
+   200 sweeps (cut from 400 to hold the script's time) through K3 ("auto") and through the plain grouped draw on the
    card ("grouped"): GEBV correlation >= 0.98, sigma_e2 posterior means within
    25 %;
 9. the public API again: `bayesc` (K3) and `bayesian_ridge` (joint block
@@ -48,14 +49,31 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 10. cross-validation (`cv_phase`): `cvbulk_batched` and `cvbulk` on the card
    against device="cpu" at 256x2048, the JAX bench's `cv` cell at 2048x32768
    cold and warm, `cvbulk` over six models at that width (K2 and K3 launched
-   by the jobs) and again with two workers, and `validate`'s leakage check.
+   by the jobs) and again with two workers, and `validate`'s leakage check;
+11. GWAS (`gwas_phase`): gwasols, gwaslmm and gwasreml on the card against
+   device="cpu" on a 256x2048 QTL panel; the JAX bench's `gwas` cell at
+   2048x32768 (gwasreml cold and warm, gwasols and gwaslmm on the cached
+   prep, markers/s, stage split, peak memory) with the upload measurement
+   (f32 against uint8 codes); cuSOLVER's eigh of phase 7's 10,000-entry GRM
+   in f32 and f64;
+12. multi-trait (`multitrait_phase`): four correlated traits on phase 7's
+   10,000 x 102,000 panel, 10 % of the noisy trait missing:
+   `gblup_multitrait_cov` at size (stages, genetic correlations against the
+   simulated ones, the noisy trait against its single-trait `gblup`),
+   `gblup_multitrait` on the complete traits, the card against device="cpu"
+   on a 512x4096 cut, and `gblup_multienv` on a 3-year x 2-site trial set on
+   phase 6's panel, card against device="cpu" and against an all-f64 fit.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
 held against its plain version once more, on the first block of phase 7's
 chain as the chain called it. Phase 10 runs with the counters reset again
-and read after it, and every kernel must have launched there too. Then
-phase 7's panel goes through the profiler.
+and read after it, and every kernel must have launched there too; so do
+phases 11 (K2 must launch) and 12 (K1 or K2 must launch). After each of
+phases 5-9, 10, 11 and 12 is read, K1 and K2 are held against their plain
+versions at every operand shape the phase launched them at that no earlier
+check held (`hold_launched_shapes`). Then phase 7's panel goes through the
+profiler.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failed check raises, so the script exits non-zero and
 prints no result. TF32 is off for every float32 matmul (the plain versions
@@ -438,6 +456,438 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     return dict(gbm.LAUNCHES)
 
 
+def upload_line(freq, card: str) -> None:
+    """The measurement behind `_prep_device`'s f32 upload: at the bench
+    panel's size, the JAX prep's host quantisation to uint8 q = 240·G (its
+    numpy fallback, genomicbreedingmodels_tpu/models/gwas.py:286-295), and
+    the pageable h2d of the f32 panel and of the uint8 codes; then the
+    port's own upload (f64 numpy to an f32 card tensor, as `_prep_device`)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    G32 = np.asarray(freq, dtype=np.float32)
+    q = np.rint(G32 * np.float32(240.0))
+    on_grid = (float(np.max(np.abs(G32 - q * np.float32(1.0 / 240.0)))) <= 2e-7
+               and float(q.max(initial=0.0)) <= 255.0 and float(q.min(initial=0.0)) >= 0.0)
+    codes = q.astype(np.uint8)
+    t_quant = time.perf_counter() - t0
+    check(on_grid, "the gwas cell's panel lies on the q/240 grid")
+    times = {}
+    for label, arr in (("f32", G32), ("uint8", codes)):
+        host = torch.from_numpy(arr)
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host.to("cuda")
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[label] = (min(ts), arr.nbytes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.as_tensor(freq).to(device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_port = time.perf_counter() - t0
+    n, p = freq.shape
+    print(f"GWAS upload {n}x{p}: host quantise to uint8 (numpy, as the JAX prep's fallback) "
+          f"{t_quant:.3f} s; h2d f32 {times['f32'][1] / 1e6:.0f} MB {times['f32'][0] * 1e3:.1f} ms "
+          f"({times['f32'][1] / times['f32'][0] / 1e9:.2f} GB/s), uint8 {times['uint8'][1] / 1e6:.0f} MB "
+          f"{times['uint8'][0] * 1e3:.1f} ms ({times['uint8'][1] / times['uint8'][0] / 1e9:.2f} GB/s), "
+          f"best of 3, pageable; the port's upload (f64 host panel to f32 on the card) "
+          f"{t_port * 1e3:.1f} ms {card}")
+
+
+def eigh_line(X, card: str) -> None:
+    """cuSOLVER's eigh of an n=10,000 GRM in f32 and in f64: times and the f32
+    spectrum's distance from f64 over max|K|. The GRM is that of phase 7's
+    dosage panel (X = dosages/2 on the card), built by K1."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.ops.grm import gram_dosage
+
+    mu = X.mean(dim=0)
+    denom = float(2.0 * (mu * (1.0 - mu)).sum())
+    K = gram_dosage((X * 2.0).to(torch.int8), ploidy=2, device=X.device) / denom
+    torch.linalg.eigh(torch.eye(8, device=X.device))  # cuSOLVER's handle, outside the timing
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        Kd = K.to(dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, U = torch.linalg.eigh(Kd)
+        torch.cuda.synchronize()
+        out[dt] = (time.perf_counter() - t0, s)
+        del Kd, U
+    err = float((out[torch.float32][1].double() - out[torch.float64][1]).abs().max() / K.abs().max())
+    print(f"eigh n={K.shape[0]} (GRM of phase 7's panel, K1): cuSOLVER f32 {out[torch.float32][0]:.3f} s, "
+          f"f64 {out[torch.float64][0]:.3f} s; f32 spectrum max|Δs|/max|K| = {err:.3g} {card}")
+    check(err < 1.0, "eigh n=10000: the f32 spectrum is finite")
+    del K, out
+    torch.cuda.empty_cache()
+
+
+def hold_launched_shapes(held: dict, gen, phase: str) -> None:
+    """Holds K1 and K2 against their plain versions at every operand shape
+    the phase just run launched them at (`_build.LAUNCH_SHAPES`) that no
+    earlier check held, on random panels of that shape and type as phases
+    3-4 make them (dosages in {0, 1, 2}; uniform [0, 1) in f32 or bf16).
+    Runs after the phase's counts were read: these launches do not count.
+    Adds each shape to `held` (kernel -> set of (dtype, n, p))."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.kernels import _build
+    from genomicbreedingmodels_tpu_torch.kernels.gram_tri import (
+        gram_tri_float,
+        gram_tri_float_plain,
+        gram_tri_int8,
+        gram_tri_int8_plain,
+    )
+
+    todo = sorted((name, key) for name in ("gram_tri_int8", "gram_tri_float")
+                  for key in _build.LAUNCH_SHAPES[name] - held[name])
+    for name, (dt, n, p) in todo:
+        if name == "gram_tri_int8":
+            D = torch.randint(0, 3, (n, p), dtype=torch.int8, device="cuda", generator=gen)
+            K, R = gram_tri_int8(D, 2), gram_tri_int8_plain(D, 2)
+            torch.cuda.synchronize()
+            equal, upper0 = torch.equal(K, R), not bool(torch.triu(K, 1).any())
+            print(f"K1 {n}x{p} as launched in {phase}: equal={equal} strict_upper_zero={upper0} "
+                  f"max_abs_err={int((K - R).abs().max())}")
+            check(equal and upper0, f"K1 at {n}x{p}, launched in {phase}")
+            del D
+        else:
+            X = torch.rand((n, p), device="cuda", generator=gen).to(getattr(torch, dt))
+            K, R = gram_tri_float(X), gram_tri_float_plain(X)
+            torch.cuda.synchronize()
+            err, scale = float((K - R).abs().max()), float(R.abs().max())
+            upper0 = not bool(torch.triu(K, 1).any())
+            print(f"K2 {n}x{p} {dt} as launched in {phase}: max_abs_err={err:.4g} max|G|={scale:.4g} "
+                  f"rel={err / scale:.3g} strict_upper_zero={upper0}")
+            check(err <= K2_TOL * scale and upper0, f"K2 {dt} at {n}x{p}, launched in {phase}")
+            del X
+        held[name].add((dt, n, p))
+        del K, R
+    torch.cuda.empty_cache()
+    print(f"{phase}: K1/K2 held against their plain versions at {len(todo)} more shape(s) it launched; "
+          f"every launched shape is now held")
+
+
+GWAS_SCANS = ("gwasols", "gwaslmm", "gwasreml")
+GWAS_COR_MIN, GWAS_S2_TOL = 0.999, 1e-3  # card vs device="cpu": statistic cor; gwaslmm σ² relative
+
+
+def gwas_phase(gbm, dev, card, X_big=None, width=(2048, 32_768)) -> dict:
+    """Phase 11, GWAS, with the launch counters set to 0 just before it;
+    returns the counts it launched.
+
+    (a) a 256x2048 QTL panel as tests/test_gwas.py's `gwas_data` makes it
+    (simulate_genomes(seed=42) rounded to tetraploid calls, h² = 0.5 on 5
+    QTL): gwasols, gwaslmm and gwasreml on the card and with device="cpu":
+    the same loci, cor >= GWAS_COR_MIN for each scan's statistics, one
+    argmax marker across the six fits, gwaslmm's σ²ₑ and σ²ᵤ within
+    GWAS_S2_TOL relative;
+    (b) the JAX bench's `gwas` cell (bench.py:448-519) at `width`: a
+    default_rng(3) panel of integers 0-2 over 2 with one normal trait; the
+    upload measurement (`upload_line`); gwasreml cold (prep cache cleared)
+    and warm, then gwasols and gwaslmm on the cached prep: markers/s each,
+    gwasreml's stage split, peak device memory, every statistic finite;
+    (c) with X_big (phase 7's 10,000-entry panel), `eigh_line`.
+    """
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.models import gwas as gwas_mod
+
+    cuda = torch.device(dev).type == "cuda"
+    gbm.reset_launches()
+
+    # -- (a) the card against device="cpu" on a QTL panel --------------------------
+    g = gbm.simulate_genomes(n=256, l=2048, seed=42)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.round(g.allele_frequencies * 4) / 4)
+    pv = np.zeros((9, 1))
+    pv[0, 0] = 0.5
+    tr, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.05, 0.0, 0.0]]),
+                                proportion_of_variance=pv, n_qtl=5, seed=42)
+    ph = gbm.extract_phenomes(tr)
+    fits, secs = {}, {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        fits[d] = {name: getattr(gbm, name)(g, ph, device=d) for name in GWAS_SCANS}
+        secs[d] = time.perf_counter() - t0
+    parts, tops, verdicts = [], [], []
+    for name in GWAS_SCANS:
+        a, b = fits[dev][name], fits["cpu"][name]
+        cor = float(np.corrcoef(a.b_hat, b.b_hat)[0, 1])
+        tops += [int(np.argmax(np.abs(a.b_hat))), int(np.argmax(np.abs(b.b_hat)))]
+        parts.append(f"{name} cor={cor:.7f}")
+        verdicts.append((np.array_equal(a.b_hat_labels, b.b_hat_labels), f"GWAS (a) {name}: same loci"))
+        verdicts.append((bool(np.all(np.isfinite(a.b_hat))) and cor >= GWAS_COR_MIN,
+                         f"GWAS (a) {name}: card vs cpu cor"))
+    la, lb = fits[dev]["gwaslmm"].extras, fits["cpu"]["gwaslmm"].extras
+    s2 = {k: abs(la[k] - lb[k]) / abs(lb[k]) for k in ("sigma2_e", "sigma2_u")}
+    print(f"GWAS (a) 256x2048 QTL panel, card vs device='cpu': " + "; ".join(parts)
+          + f"; argmax markers {tops}; gwaslmm sigma2_e {la['sigma2_e']:.7g} ({lb['sigma2_e']:.7g}), "
+          f"sigma2_u {la['sigma2_u']:.7g} ({lb['sigma2_u']:.7g}); card {secs[dev]:.3f} s, "
+          f"cpu {secs['cpu']:.3f} s {card}")
+    for ok, what in verdicts:
+        check(ok, what)
+    check(len(set(tops)) == 1, "GWAS (a): one argmax marker across the three scans and both devices")
+    check(max(s2.values()) <= GWAS_S2_TOL, "GWAS (a): gwaslmm sigma2 within 1e-3 of the cpu's")
+
+    # -- (b) the bench's gwas cell ------------------------------------------------------
+    n, p = width
+    rng = np.random.default_rng(3)
+    freq = rng.integers(0, 3, size=(n, p)).astype(np.float64) / 2.0
+    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
+                    populations=np.array(["pop_1"] * n),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
+                    allele_frequencies=freq)
+    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                     phenotypes=rng.normal(size=(n, 1)))
+    if cuda:
+        upload_line(freq, card)
+        torch.cuda.reset_peak_memory_stats()
+    gwas_mod._PREP_CACHE.clear()
+    for call in ("cold", "warm"):
+        t0 = time.perf_counter()
+        fit = gbm.gwasreml(G, P, device=dev)
+        t = time.perf_counter() - t0
+        split = " ".join(f"{k}={v['total_s']:.3f}s" for k, v in fit.extras["timings"].items())
+        print(f"GWAS (b) gwasreml {n}x{p}, {call} (prep cache {'cleared' if call == 'cold' else 'hit'}): "
+              f"{t:.3f} s, {p / t:.6g} markers/s ({split}) {card}")
+        check(bool(np.all(np.isfinite(fit.b_hat))) and len(fit.b_hat) == p, f"gwasreml {call} finite")
+    for name in ("gwasols", "gwaslmm"):
+        t0 = time.perf_counter()
+        fit = getattr(gbm, name)(G, P, device=dev)
+        t = time.perf_counter() - t0
+        print(f"GWAS (b) {name} {n}x{p}, prep cached: {t:.3f} s, {p / t:.6g} markers/s {card}")
+        check(bool(np.all(np.isfinite(fit.b_hat))) and len(fit.b_hat) == p, f"{name} finite")
+    if cuda:
+        print(f"GWAS (b) peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"(phase 7's 4.1 GB panel resident) {card}")
+    gwas_mod._PREP_CACHE.clear()
+    del freq, G
+
+    if X_big is not None:
+        eigh_line(X_big, card)
+    launched = dict(gbm.LAUNCHES)
+    if cuda:
+        check(launched["gram_tri_float"] > 0, "phase 11 launched K2")
+    return launched
+
+
+# Phase 12's traits: a genetic correlation, heritabilities (trait 2 the noisy
+# one, 10 % of its records missing), and the checks' tolerances.
+MT_RG = ((1.0, 0.9, 0.5, 0.3), (0.9, 1.0, 0.4, 0.2), (0.5, 0.4, 1.0, 0.6), (0.3, 0.2, 0.6, 1.0))
+MT_H2 = (0.7, 0.15, 0.4, 0.3)
+MT_COV_TOL, MT_RG_TOL, MT_ENV_TOL = 1e-3, 0.1, 1e-3
+# gblup_multienv's σ²ₑ on phase 12 (d)'s trials, card against device="cpu":
+# σ²ᵤ sits on its REML bound, and the CPU path's GRM, rounded to f32, leaves
+# its σ²ₑ 4.4e-3 from an all-f64 fit (4.7e-3 with an f64 eigh on it; the f32
+# eigh alone moves σ²ₑ 1.1e-3, an f64 REML scan 4.6e-6;
+# scripts/torch_multienv_grm_sensitivity.py). The card is held to the f64
+# fit at MT_ENV_TOL.
+MT_ENV_E_TOL = 1e-2
+
+
+def multienv_f64_witness(gbm, genomes, trials, grm: bool = True, eigh: bool = True):
+    """`gblup_multienv(genomes, trials, device="cpu")` with its GRM an f64
+    product of the centred panel on the host (`grm`) and its
+    eigendecomposition in f64 (`eigh`); the CPU path rounds the GRM to f32
+    and eigendecomposes in f32. GRM_type "simple" only."""
+    import numpy as np
+    import torch
+
+    mt = importlib.import_module("genomicbreedingmodels_tpu_torch.models.multitrait")
+    from genomicbreedingmodels_tpu_torch.core.grm import GRMResult
+
+    def grm_f64(X, GRM_type, dev):
+        assert GRM_type == "simple"
+        Z = np.asarray(X, dtype=np.float64)
+        f = Z.mean(axis=0)
+        Z = Z - f
+        denom = 2.0 * float(np.sum(f * (1.0 - f)))
+        denom = denom if denom > 1e-12 else 1.0
+        return GRMResult(genomic_relationship_matrix=torch.from_numpy(Z @ Z.T / denom),
+                         denominator=denom, ploidy=2)
+
+    def eigh_f64(K):
+        Kd = K.double()
+        s, U = torch.linalg.eigh(0.5 * (Kd + Kd.mT))
+        return torch.clamp(s, min=0.0).to(K.dtype), U.to(K.dtype)
+
+    saved = mt.grm_of_type, mt._eigh_device
+    mt.grm_of_type = grm_f64 if grm else saved[0]
+    mt._eigh_device = eigh_f64 if eigh else saved[1]
+    try:
+        return gbm.gblup_multienv(genomes, trials, device="cpu")
+    finally:
+        mt.grm_of_type, mt._eigh_device = saved
+
+
+def multitrait_phase(gbm, dev, card, X_big, g_env, n_cut: int = 512, p_cut: int = 4096) -> dict:
+    """Phase 12, multi-trait and multi-environment GBLUP (BASELINE config 5's
+    model), with the launch counters set to 0 just before it; returns the
+    counts it launched.
+
+    X_big: phase 7's dosage panel on the card (dosages/2; 10,000 x 102,000).
+    Four traits with genetic correlation MT_RG and heritabilities MT_H2 are
+    made on the card from four independent sparse marker-effect vectors, and
+    10 % of trait 2's records are set missing. The panel goes to the host and
+    into a `Genomes`.
+    (a) `gblup_multitrait_cov` (missing_policy="em") on a 90 % training
+    split: its stages (grm, eigh, em, effects), the fitted genetic
+    correlation of trait 1 and the noisy trait 2 within MT_RG_TOL of the
+    simulated genetic values' own (the other pairs are printed: on unrelated
+    entries with p >> n the REML estimates of the weaker correlations carry
+    a sampling error near 0.1 at this size), and trait 2's validation GEBV
+    correlation with its genetic values above that of its single-trait
+    `gblup`;
+    (b) `gblup_multitrait` on the three complete traits, same split;
+    (c) `gblup_multitrait_cov` on an n_cut x p_cut cut of the same data, on
+    the card and with device="cpu": G_g and R within MT_COV_TOL relative;
+    (d) `gblup_multienv` on a 3-year x 2-site trial set simulated on
+    `g_env` (phase 6's 2048x16384 panel), the card against an all-f64 fit
+    on the host (`multienv_f64_witness`): σ²ᵤ, σ²ₑ and σ²_env within
+    MT_ENV_TOL relative, y_pred cor >= 0.9999; and against device="cpu":
+    σ²ᵤ and σ²_env within MT_ENV_TOL, σ²ₑ within MT_ENV_E_TOL, y_pred cor
+    >= 0.9999.
+    """
+    import numpy as np
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    gbm.reset_launches()
+    n, p = X_big.shape
+    gen = torch.Generator(device=X_big.device)
+    gen.manual_seed(12)
+    t0 = time.perf_counter()
+    B = torch.randn(p, 4, device=X_big.device, generator=gen)
+    B *= torch.rand(p, 4, device=X_big.device, generator=gen) < 0.01  # 1 % causal per score
+    A = X_big @ B
+    A = (A - A.mean(dim=0)) / A.std(dim=0)  # four independent genetic scores
+    L = torch.linalg.cholesky(torch.tensor(MT_RG, device=X_big.device))
+    Gv = A @ L.T
+    h2 = torch.tensor(MT_H2, device=X_big.device)
+    Y = h2.sqrt() * Gv + (1.0 - h2).sqrt() * torch.randn(n, 4, device=X_big.device, generator=gen)
+    Gv, Y = Gv.double().cpu().numpy(), Y.double().cpu().numpy()
+    rng = np.random.default_rng(12)
+    Y[rng.choice(n, n // 10, replace=False), 1] = np.nan
+    entries = np.array([f"e{i:05d}" for i in range(n)])
+    G = gbm.Genomes(entries=entries, populations=np.array(["pop_1"] * n),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
+                    allele_frequencies=X_big.cpu().numpy())
+    P = gbm.Phenomes(entries=entries, populations=G.populations,
+                     traits=np.array([f"trait_{k + 1}" for k in range(4)]), phenotypes=Y)
+    print(f"multi-trait data {n}x{p} (no cut of entries, markers or traits), t=4, "
+          f"{int(np.isnan(Y[:, 1]).sum())} of trait_2's records missing: {time.perf_counter() - t0:.2f} s "
+          f"(traits on the card, panel to a host Genomes) {card}")
+    perm = rng.permutation(n)
+    va, tr = np.sort(perm[: n // 10]), np.sort(perm[n // 10 :])
+
+    # -- (a) the covariance model at size ---------------------------------------------
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fits = gbm.gblup_multitrait_cov(G, P, idx_entries=tr, device=dev)
+    t = time.perf_counter() - t0
+    ex = fits[0].extras
+    split = " ".join(f"{k}={v:.3f}s" for k, v in ex["stage_seconds"].items())
+    peak = f", peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" if cuda else ""
+    print(f"MT (a) gblup_multitrait_cov {len(tr)}x{p} t=4, missing_policy='em': {t:.3f} s ({split}){peak} {card}")
+    sim = np.corrcoef(Gv[tr].T)
+    d_rg = abs(float(ex["genetic_correlations"][0, 1]) - float(sim[0, 1]))
+    print("MT (a) genetic correlations fitted / simulated: "
+          + " ".join(f"({i + 1},{j + 1}) {ex['genetic_correlations'][i, j]:.3f}/{sim[i, j]:.3f}"
+                     for i in range(4) for j in range(i + 1, 4))
+          + "; h2 " + " ".join(f"{f.extras['h2']:.3f}" for f in fits) + f" {card}")
+    check(all(np.all(np.isfinite(f.b_hat)) for f in fits), "gblup_multitrait_cov at size finite")
+    check(d_rg <= MT_RG_TOL, "gblup_multitrait_cov: r_g(trait_1, trait_2) within 0.1 of the simulated")
+    t0 = time.perf_counter()
+    single = gbm.gblup(G, P, idx_entries=tr, idx_trait=1, device=dev)
+    t_single = time.perf_counter() - t0
+    cor_mt = float(np.corrcoef(gbm.predict(fits[1], G, va, device=dev), Gv[va, 1])[0, 1])
+    cor_st = float(np.corrcoef(gbm.predict(single, G, va, device=dev), Gv[va, 1])[0, 1])
+    print(f"MT (a) trait_2 (h2 {MT_H2[1]}, 10 % missing), validation cor(GEBV, g): multi-trait {cor_mt:.4f}, "
+          f"single-trait gblup {cor_st:.4f} ({t_single:.3f} s) {card}")
+    check(cor_mt > cor_st, "the noisy trait borrows strength: multi-trait beats single-trait gblup")
+    # The EM's per-eigen-index t×t algebra, batched f64 on the card against the
+    # same torch code on the host, at the training size (20 iterations, no
+    # early stop, on synthetic rotated traits).
+    s_syn = torch.linspace(0.0, 3.0, len(tr), dtype=torch.float64) ** 2
+    Yt_syn = torch.randn(len(tr), 4, dtype=torch.float64, generator=torch.Generator().manual_seed(3))
+    Yt_syn *= (s_syn[:, None] + 1.0).sqrt()
+    gbm.mtgblup_em(Yt_syn, s_syn, n_iter=2, tol=0.0, device=dev)  # warm-up
+    em_ms = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        gbm.mtgblup_em(Yt_syn, s_syn, n_iter=20, tol=0.0, device=d)
+        em_ms[d] = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"MT (a) mtgblup_em {len(tr)} x 4, 20 iterations: {em_ms[dev]:.2f} ms per iteration on the "
+          f"card, {em_ms['cpu']:.2f} ms with device='cpu' {card}")
+
+    # -- (b) independent per-trait GBLUP on the complete traits ----------------------
+    t0 = time.perf_counter()
+    per = gbm.gblup_multitrait(G, P.slice(idx_traits=[0, 2, 3]), idx_entries=tr, device=dev)
+    t = time.perf_counter() - t0
+    print(f"MT (b) gblup_multitrait {len(tr)}x{p}, 3 complete traits (one GRM, one eigh): {t:.3f} s; "
+          + " ".join(f"{f.trait} h2={f.extras['h2']:.3f}" for f in per) + f" {card}")
+    check(all(np.all(np.isfinite(f.y_pred)) for f in per), "gblup_multitrait finite")
+    del G, P, single, fits, per
+
+    # -- (c) the card against device="cpu" on a cut ------------------------------------
+    Gc = gbm.Genomes(entries=entries[:n_cut], populations=np.array(["pop_1"] * n_cut),
+                     loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p_cut)]),
+                     allele_frequencies=X_big[:n_cut, :p_cut].cpu().numpy())
+    Pc = gbm.Phenomes(entries=Gc.entries, populations=Gc.populations,
+                      traits=np.array([f"trait_{k + 1}" for k in range(4)]), phenotypes=Y[:n_cut])
+    cut = {d: gbm.gblup_multitrait_cov(Gc, Pc, device=d)[0].extras for d in (dev, "cpu")}
+    rel = {k: float(np.abs(cut[dev][k] - cut["cpu"][k]).max() / np.abs(cut["cpu"][k]).max())
+           for k in ("genetic_covariance", "residual_covariance")}
+    print(f"MT (c) gblup_multitrait_cov {n_cut}x{p_cut} card vs device='cpu': max|Δ G_g|/max|G_g| "
+          f"{rel['genetic_covariance']:.3g}, max|Δ R|/max|R| {rel['residual_covariance']:.3g} {card}")
+    check(max(rel.values()) <= MT_COV_TOL, "gblup_multitrait_cov: card G_g and R within 1e-3 of cpu")
+
+    # -- (d) multi-environment GBLUP ---------------------------------------------------
+    pv = np.array([[0.5], [0.2], [0.0], [0.1], [0.0], [0.0], [0.0], [0.0]])
+    trials, _ = gbm.simulate_trials(g_env, n_years=3, n_sites=2, n_replications=2,
+                                    f_add_dom_epi=np.array([[0.5, 0.0, 0.0]]),
+                                    proportion_of_variance=pv, seed=5)
+    env, secs = {}, {}
+    for d in (dev, "cpu", "f64"):
+        t0 = time.perf_counter()
+        env[d] = (multienv_f64_witness(gbm, g_env, trials) if d == "f64"
+                  else gbm.gblup_multienv(g_env, trials, device=d))
+        secs[d] = time.perf_counter() - t0
+    a = env[dev].extras
+    comps = ("sigma2_u", "sigma2_e", "sigma2_env")
+    rel, cor = {}, {}
+    for ref in ("cpu", "f64"):
+        b = env[ref].extras
+        rel[ref] = {k: abs(a[k] - b[k]) / abs(b[k]) for k in comps}
+        cor[ref] = float(np.corrcoef(env[dev].y_pred, env[ref].y_pred)[0, 1])
+    print(f"MT (d) gblup_multienv {g_env.n}x{g_env.p}, {a['n_environments']} environments, "
+          f"{len(trials.entries)} records, card (device='cpu'; all-f64 fit): "
+          + " ".join(f"{k} {a[k]:.7g} ({env['cpu'].extras[k]:.7g}; {env['f64'].extras[k]:.7g})"
+                     for k in comps)
+          + "; card vs cpu: " + " ".join(f"{k} {v:.3g}" for k, v in rel["cpu"].items())
+          + f", y_pred cor {cor['cpu']:.8f}; card vs f64: "
+          + " ".join(f"{k} {v:.3g}" for k, v in rel["f64"].items())
+          + f", y_pred cor {cor['f64']:.8f}; card {secs[dev]:.3f} s, cpu {secs['cpu']:.3f} s, "
+          f"f64 {secs['f64']:.3f} s {card}")
+    check(max(rel["f64"].values()) <= MT_ENV_TOL and cor["f64"] >= 0.9999,
+          "gblup_multienv card vs the all-f64 fit: sigma2_u, sigma2_e, sigma2_env and y_pred")
+    check(max(rel["cpu"]["sigma2_u"], rel["cpu"]["sigma2_env"]) <= MT_ENV_TOL and cor["cpu"] >= 0.9999,
+          "gblup_multienv card vs cpu: sigma2_u, sigma2_env and y_pred")
+    check(rel["cpu"]["sigma2_e"] <= MT_ENV_E_TOL, "gblup_multienv card vs cpu: sigma2_e")
+    launched = dict(gbm.LAUNCHES)
+    if cuda:
+        check(launched["gram_tri_int8"] + launched["gram_tri_float"] > 0, "phase 12 launched K1 or K2")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -528,7 +978,8 @@ def main() -> int:
     X_cont = train_panel(genomes).astype(np.float32)
 
     # -- 3. K1 against its plain version --------------------------------------
-    k1_inputs = [(64, 512), (129, 257), (1000, 4099), (n_train, 16_384),
+    # 4352x24576: 17 row blocks of 256 (two groups of the tile order), 3 marker splits.
+    k1_inputs = [(64, 512), (129, 257), (1000, 4099), (4352, 24_576), (n_train, 16_384),
                  "gblup called panel", (N_HEAD, P_HEAD)]
     for what in k1_inputs:
         if what == "gblup called panel":
@@ -576,7 +1027,8 @@ def main() -> int:
         def mm_bf16(X):
             return torch.mm(X, X.T)
     k2_shapes = []
-    k2_inputs = [(129, 257), (256, 2048), (2048, 32768), (n_train, 16_384),
+    # 2304x32768: 18 row blocks of 128 (two groups of the tile order), 2 marker splits.
+    k2_inputs = [(129, 257), (256, 2048), (2048, 32768), (2304, 32768), (n_train, 16_384),
                  "gblup continuous panel"]
     for what in k2_inputs:
         # gblup hands K2 its continuous panel in float32 only
@@ -655,6 +1107,10 @@ def main() -> int:
                                               warm_ms=warm_ms, us_per_group=ms / G * 1e3)
                 print(f"K3 bs={bs} K={K}: bound {bound_ms * 1e3:.3f} us ({bound_by})")
     del flush
+
+    # The shapes phases 3-4 held K1 and K2 at; every later phase holds the
+    # shapes it launched them at and these did not cover (`hold_launched_shapes`).
+    held = {k: set(v) for k, v in _build.LAUNCH_SHAPES.items()}
 
     # -- main path: counters from zero ----------------------------------------
     gbm.reset_launches()
@@ -787,12 +1243,12 @@ def main() -> int:
     chains = {}
     for upd in ("auto", "grouped"):
         t0 = time.perf_counter()
-        mu, b_e, diag = gbm.gibbs_regression(X_e, y_e, model="BayesC", n_iter=400, n_burnin=100,
+        mu, b_e, diag = gbm.gibbs_regression(X_e, y_e, model="BayesC", n_iter=200, n_burnin=50,
                                              seed=2, indicator_update=upd, device=dev)
         t = time.perf_counter() - t0
-        s2_mean = float(diag["sigma_e2_trace"][100:].mean())
+        s2_mean = float(diag["sigma_e2_trace"][50:].mean())
         chains[upd] = (mu + X_e @ b_e, s2_mean)
-        print(f"BayesC 512x4096 400 sweeps, indicator_update={upd!r} -> {diag['update']}: {t:.3f} s, "
+        print(f"BayesC 512x4096 200 sweeps, indicator_update={upd!r} -> {diag['update']}: {t:.3f} s, "
               f"effect ESS {diag['ess_effects_mean']:.1f}, sigma_e2 ESS {diag['ess_sigma_e2']:.1f}, "
               f"sigma_e2 posterior mean {s2_mean:.6g}, cor(X b, g)={np.corrcoef(X_e @ b_e, g_e)[0, 1]:.4f} "
               f"{card}")
@@ -824,6 +1280,7 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} launched on the main path")
+    hold_launched_shapes(held, gen, "phases 5-9")
 
     # K3 on the first block of phase 7's chain, with its real Cb, u, s2, sigma_e2
     # and noise (after the counters were read: these launches do not count).
@@ -836,6 +1293,17 @@ def main() -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; launches in phase 10: {cv_launches}")
     for name, count in cv_launches.items():
         check(count > 0, f"{name} launched in phase 10")
+    hold_launched_shapes(held, gen, "phase 10")
+
+    # -- 11. GWAS and 12. multi-trait, counters from zero for each -------------------
+    t0 = time.perf_counter()
+    gwas_launches = gwas_phase(gbm, dev, card, X_big=X)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s; launches in phase 11: {gwas_launches} {card}")
+    hold_launched_shapes(held, gen, "phase 11")
+    t0 = time.perf_counter()
+    mt_launches = multitrait_phase(gbm, dev, card, X, genomes)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s; launches in phase 12: {mt_launches} {card}")
+    hold_launched_shapes(held, gen, "phase 12")
 
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
@@ -871,9 +1339,12 @@ def main() -> int:
                         "genomicbreedingmodels_tpu/ops/pallas_gibbs.py:63"),
     }
     records["gram_tri_float"]["shapes"] = k2_shapes
-    kernels = [  # launches: phases 5-9 and phase 10, each counted from zero
+    for name in ("gram_tri_int8", "gram_tri_float"):  # every shape held against the plain version
+        records[name]["held_shapes"] = [f"{dt} {n}x{p}" for dt, n, p in sorted(held[name])]
+    kernels = [  # launches: phases 5-9, 10, 11 and 12, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + cv_launches[name], **records[name]}
+         "launches": launches[name] + cv_launches[name] + gwas_launches[name] + mt_launches[name],
+         **records[name]}
         for name, (src, rep) in sources.items()
     ]
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s from the first check to here {card}")

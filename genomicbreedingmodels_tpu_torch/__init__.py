@@ -12,7 +12,10 @@ and `metrics`; the Bayesian alphabet (`gibbs_regression`, `bglr`,
 grouped Gibbs block update K3 as a hand-written CUDA kernel; the linear zoo
 (`ols`, `ridge`, `lasso`), the MLP, and cross-validation (`validate`,
 `cvbulk` and its population modes, `cvbulk_batched` for ridge/gblup/lasso,
-`tabularise`/`summarise`). Every public entry point takes `device=`
+`tabularise`/`summarise`); the GWAS suite (`gwasprep`, `gwasols`,
+`gwaslmm`, `gwasreml`) and multi-trait / multi-environment GBLUP
+(`gblup_multitrait`, `gblup_multitrait_cov`, `gblup_multienv`,
+`mtgblup_em`). Every public entry point takes `device=`
 (default "cuda"); `device="cpu"` runs the kernels' plain PyTorch versions.
 """
 
@@ -32,8 +35,9 @@ from .core.simulation import extract_phenomes, simulate_genomes, simulate_trials
 from .core.grm import grm_ploidy_aware, grm_simple, infer_ploidy
 from .ops.metrics import metrics
 from .prediction import extractxyetc, mean_impute, predict
-from .models.gwas import loglikreml
-from .models.gblup import gblup, reml_variance_components
+from .models.gwas import gwaslmm, gwasols, gwasprep, gwasreml, loglikreml
+from .models.gblup import gblup, gblup_multitrait, reml_variance_components
+from .models.multitrait import gblup_multienv, gblup_multitrait_cov, mtgblup_em
 from .models.bayesian import (
     BAYESIAN_MODELS,
     bayesa,
@@ -89,7 +93,15 @@ __all__ = [
     "mean_impute",
     "predict",
     "gblup",
+    "gblup_multitrait",
+    "gblup_multitrait_cov",
+    "gblup_multienv",
+    "mtgblup_em",
     "reml_variance_components",
+    "gwasprep",
+    "gwasols",
+    "gwaslmm",
+    "gwasreml",
     "loglikreml",
     "gibbs_regression",
     "bglr",

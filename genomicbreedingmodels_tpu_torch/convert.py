@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.structs import CV, Fit, Genomes, Phenomes
+from .core.structs import CV, Fit, Genomes, Phenomes, Trials
 from .device import resolve_device
 
 __all__ = [
@@ -21,6 +21,7 @@ __all__ = [
     "genomes_from_reference",
     "mlp_from_params",
     "phenomes_from_reference",
+    "trials_from_reference",
 ]
 
 
@@ -44,6 +45,30 @@ def phenomes_from_reference(obj) -> Phenomes:
     )
 
 
+def trials_from_reference(obj) -> Trials:
+    return Trials(
+        entries=np.asarray(obj.entries),
+        populations=np.asarray(obj.populations),
+        years=np.asarray(obj.years),
+        seasons=np.asarray(obj.seasons),
+        sites=np.asarray(obj.sites),
+        replications=np.asarray(obj.replications),
+        traits=np.asarray(obj.traits),
+        phenotypes=np.asarray(obj.phenotypes),
+    )
+
+
+def _extra(v):
+    """An `extras` value as the port holds it: arrays (the multi-trait t×t
+    covariances) as numpy copies, dicts (the multi-environment effects) as
+    dicts of converted values, anything else as is."""
+    if isinstance(v, dict):
+        return {k: _extra(x) for k, x in v.items()}
+    if hasattr(v, "__array__") and np.ndim(v) > 0:
+        return np.array(v)
+    return v
+
+
 def fit_from_reference(obj) -> Fit:
     return Fit(
         model=str(obj.model),
@@ -55,7 +80,7 @@ def fit_from_reference(obj) -> Fit:
         y_true=np.asarray(obj.y_true),
         y_pred=np.asarray(obj.y_pred),
         metrics=dict(obj.metrics),
-        extras=dict(obj.extras),
+        extras={k: _extra(v) for k, v in obj.extras.items()},
     )
 
 

@@ -16,7 +16,9 @@ import torch
 from ..ops.grm import encode_dosage, gram_centered, gram_dosage
 from .structs import Genomes
 
-__all__ = ["GRMResult", "grm_simple", "grm_ploidy_aware", "infer_ploidy"]
+__all__ = ["GRMResult", "GRM_TYPES", "grm_simple", "grm_ploidy_aware", "grm_of_type", "infer_ploidy"]
+
+GRM_TYPES = ("simple", "ploidy-aware")
 
 
 @dataclass
@@ -73,3 +75,13 @@ def infer_ploidy(freqs: np.ndarray) -> int:
 def grm_ploidy_aware(genomes: Genomes, ploidy: int = 2, device="cuda") -> GRMResult:
     """Ploidy-aware GRM: centered X Xᵀ / (ploidy Σ f̄(1-f̄))."""
     return _grm_from_freqs(genomes.allele_frequencies, ploidy=ploidy, device=device)
+
+
+def grm_of_type(freqs: np.ndarray, GRM_type: str = "simple", device="cuda") -> GRMResult:
+    """The GRM of panel `freqs` (n, p) that `GRM_type` names: "simple", or
+    "ploidy-aware" with the ploidy inferred from the panel (`infer_ploidy`)."""
+    if GRM_type == "ploidy-aware":
+        return _grm_from_freqs(freqs, ploidy=infer_ploidy(np.asarray(freqs)), device=device)
+    if GRM_type == "simple":
+        return _grm_from_freqs(freqs, ploidy=2, device=device)
+    raise ValueError(f"unrecognised GRM_type {GRM_type!r}; choose from {GRM_TYPES}")

@@ -118,10 +118,10 @@ struct TileCursor {
     jend = last_col_block(g1 - 1, bm, bn, nc);
   }
   // Advance to the next lower-triangular tile; false once all were visited.
+  // Each tile comes once: a new group starts at its own first row block.
   __host__ __device__ bool next(int& ti, int& tj) {
     for (;;) {
       if (++i >= g1) {
-        i = g0;
         if (++j > jend) {
           g0 = g1;
           if (g0 >= nr) return false;
@@ -129,6 +129,7 @@ struct TileCursor {
           j = 0;
           jend = last_col_block(g1 - 1, bm, bn, nc);
         }
+        i = g0;
       }
       if (j <= last_col_block(i, bm, bn, nc)) {
         ti = i;

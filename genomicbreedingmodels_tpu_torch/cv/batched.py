@@ -77,6 +77,10 @@ def _masked_eigh(K, y, W):
     n_w = W.sum(1)
     mean_y = (W @ y) / n_w
     yc = (y[None] - mean_y[:, None]) * W
+    # f32 on the card too, unlike `_eigh_device`: the ridge shift and gblup's
+    # smallest ratio damp the small eigenpairs, and at the cv cell (15 x
+    # 2048²) f64 moved validation y_pred by < 2e-6·std(y)
+    # (scripts/torch_cv_fold_eigh.py).
     s, U = torch.linalg.eigh(K[None] * W[:, :, None] * W[:, None, :])
     s = torch.clamp(s, min=0.0)
     return n_w, mean_y, s, U, torch.einsum("fij,fi->fj", U, yc)

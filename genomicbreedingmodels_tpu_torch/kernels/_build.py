@@ -18,7 +18,10 @@ gives each entry point its own ctypes signature.
 a wrapper adds one (`count_launch`) where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels. The
 count is taken under `LAUNCH_LOCK`, so jobs that launch from several host
-threads (the CV executor's workers) lose none.
+threads (the CV executor's workers) lose none. Beside the count, a wrapper
+may name the operand's (dtype, n, p); `LAUNCH_SHAPES` keeps the set of them
+per kernel, so a run can hold a kernel against its plain version at every
+shape its path gave it.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "LAUNCH_LOCK", "NVCC_FLAGS", "build", "count_launch",
-           "launch", "load", "reset_launches"]
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "LAUNCH_LOCK", "LAUNCH_SHAPES", "NVCC_FLAGS", "build",
+           "count_launch", "launch", "load", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[2]  # the checkout, when the package sits in one
@@ -59,6 +62,8 @@ _ENTRY_POINTS = {
 
 # Kernel launches by the wrappers (CUDA tensors only; plain versions never count).
 LAUNCHES = {"gram_tri_int8": 0, "gram_tri_float": 0, "gibbs_group": 0}
+# The (dtype, n, p) operand shapes each kernel was launched at, where its wrapper names them.
+LAUNCH_SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 # Guards LAUNCHES, and K3's per-stream workspaces with their epochs
 # (kernels/gibbs_group.py), which must change together with the count.
 # Re-entrant: K3's wrapper counts inside its workspace section.
@@ -68,16 +73,20 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def count_launch(name: str) -> None:
-    """One more launch of kernel `name` (a read-modify-write, hence the lock)."""
+def count_launch(name: str, shape: tuple | None = None) -> None:
+    """One more launch of kernel `name` (a read-modify-write, hence the
+    lock), at operand `shape` = (dtype, n, p) where the wrapper gives it."""
     with LAUNCH_LOCK:
         LAUNCHES[name] += 1
+        if shape is not None:
+            LAUNCH_SHAPES[name].add(shape)
 
 
 def reset_launches() -> None:
     with LAUNCH_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            LAUNCH_SHAPES[k].clear()
 
 
 def _sources() -> list[Path]:

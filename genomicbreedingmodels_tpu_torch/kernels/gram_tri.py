@@ -10,7 +10,8 @@ Contract of both wrappers: the result is (n, n) with the lower triangle
 
 - A CUDA tensor goes to the hand-written Hopper kernel in `csrc/` (built by
   nvcc at first use, see `_build.py`), launched on the current stream, and
-  the kernel's entry in `LAUNCHES` goes up by one (`_build.count_launch`).
+  the kernel's entry in `LAUNCHES` goes up by one (`_build.count_launch`,
+  which also records the panel's dtype and shape).
   A failed build or launch raises. Both kernels are one mainloop
   (`csrc/gram_tri_sm90.cuh`): TMA
   loads into a shared-memory ring, wgmma on the tensor cores, persistent
@@ -201,7 +202,7 @@ def gram_tri_int8(D: torch.Tensor, ploidy: int = 2) -> torch.Tensor:
     out = torch.zeros((n, n), dtype=torch.int32, device=D.device)
     if n and p:
         _launch("gbm_gram_tri_int8", D, out)
-        _build.count_launch("gram_tri_int8")
+        _build.count_launch("gram_tri_int8", ("int8", n, p))
     return out
 
 
@@ -233,5 +234,5 @@ def gram_tri_float(X: torch.Tensor) -> torch.Tensor:
     if n and p:
         entry = "gbm_gram_tri_f32" if X.dtype == torch.float32 else "gbm_gram_tri_bf16"
         _launch(entry, X, out)
-        _build.count_launch("gram_tri_float")
+        _build.count_launch("gram_tri_float", (str(X.dtype)[6:], n, p))
     return out

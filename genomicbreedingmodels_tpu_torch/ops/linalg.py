@@ -56,19 +56,38 @@ def affine_predict(G, idx_e, idx_l, b0: float, b, device="cuda") -> np.ndarray:
     return out.cpu().numpy().astype(np.float64)
 
 
+def _eigh_device(K: torch.Tensor):
+    """Eigendecomposition of 0.5(K + Kᵀ) where K lies (a batch of matrices
+    too), eigenvalues clamped at 0, returned in K's dtype: the port's one
+    eigh policy.
+
+    On the card it runs in f64 (cuSOLVER): on an H100 the f32 spectra of
+    162-183-entry fold GRMs lay up to 6.7e-4·max|K| from f64, the CPU's f32
+    spectra 3.4e-6·max|K|, and the 162-entry fold's REML σ²ₑ, which lives on
+    the small eigenvalues, moved by 25 % (`scripts/torch_gblup_fold_eigh.py`).
+    On the CPU it runs in f32, as the JAX twin."""
+    work = torch.float64 if K.device.type == "cuda" else torch.float32
+    Kw = K.to(work)
+    s, U = torch.linalg.eigh(0.5 * (Kw + Kw.mT))
+    return torch.clamp(s, min=0.0).to(K.dtype), U.to(K.dtype)
+
+
 # ---------------------------------------------------------------------------
 # OLS (min-norm least squares)
 # ---------------------------------------------------------------------------
 
 
 def _lstsq_dual(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    # b = Xᵀ (X Xᵀ)⁺ y — the minimum-norm solution for wide X.
-    K = X @ X.T
-    s, U = torch.linalg.eigh(K)
+    # b = Xᵀ (X Xᵀ)⁺ y — the minimum-norm solution for wide X. The n×n work
+    # is f64 after the f32 Gram, its eigh through the port's one policy (f64
+    # on the card, f32 on the CPU): at 256x2048 an f32 solve on the f64
+    # basis still left validation y_pred ~1e-4·std(y) from an f64 lstsq.
+    K = (X @ X.T).double()
+    s, U = _eigh_device(K)
     tol = torch.clamp(s[-1], min=0.0) * K.shape[0] * _F32_EPS
     inv_s = torch.where(s > tol, 1.0 / s, torch.zeros_like(s))
-    alpha = U @ (inv_s * (U.T @ y))
-    return X.T @ alpha
+    alpha = U @ (inv_s * (U.T @ y.double()))
+    return X.T @ alpha.to(X.dtype)
 
 
 def _lstsq_primal(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -162,6 +181,9 @@ def _ridge_folds_fromgram(G, X, y, W, lambdas):
     Gc = G[None] - Xm[:, :, None] - Xm[:, None, :] + mm[:, None, None]  # centered Grams
     yc = y[None] - mean_y[:, None]
     K = Gc * W[:, :, None] * W[:, None, :]
+    # f32 on the card too, as `_ridge_full_eigh`: the λ shift damps the small
+    # eigenpairs; in f64 the cv cell's y_pred moved by < 5e-7·std(y)
+    # (scripts/torch_cv_fold_eigh.py).
     s, U = torch.linalg.eigh(K)
     s = torch.clamp(s, min=0.0)
     Ut_wy = torch.einsum("fij,fi->fj", U, W * yc)
@@ -309,6 +331,14 @@ def _lasso_fista_batch(Z, yc, w, lambdas, step, n_iter: int):
     return leg(B, n_iter - n_bulk, low=False)
 
 
+def _ramp(n: int, dtype, device) -> torch.Tensor:
+    """Unit-norm ramp from 1 to 2: the power iterations' start. Unlike
+    ones/√n it has a generic component outside the null space of a
+    column-centred Gram or of a column-standardised GRM's covariance."""
+    v = torch.linspace(1.0, 2.0, n, dtype=dtype, device=device)
+    return v / torch.linalg.norm(v)
+
+
 def _power_iter_lmax(Zw):
     """Largest eigenvalue of ZᵀZ via 30 power iterations on the n×n Gram.
 
@@ -318,8 +348,7 @@ def _power_iter_lmax(Zw):
     estimate then depends on the platform's rounding: 226 against a top
     eigenvalue of 238 on a test panel, where the ramp gives 237.9)."""
     K = Zw @ Zw.T
-    v = torch.linspace(1.0, 2.0, K.shape[0], dtype=torch.float32, device=K.device)
-    v = v / torch.linalg.norm(v)
+    v = _ramp(K.shape[0], torch.float32, K.device)
     for _ in range(30):
         v = K @ v
         v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)

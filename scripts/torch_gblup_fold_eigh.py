@@ -12,7 +12,17 @@ and eigendecomposes it four ways: f32 on the card, f64 on the card, f32 on
 the CPU and f64 on the CPU. It prints each spectrum's largest distance from
 the CPU's f64 one over max|K|, and, from each decomposition, REML's
 (sigma2_e, sigma2_u) on the CPU and the validation y_pred's largest distance
-from the f64 CPU one over std(y). It imports neither jax nor the JAX package.
+from the f64 CPU one over std(y).
+
+Then it traces the remaining card-against-CPU gap of `gblup` (its σ² and
+y_pred): on each fold, and on `chip_smoke.py` phase 6's continuous training
+panel (1843x16384), it runs REML's `_reml_scan` on ONE basis, the card's f64
+eigendecomposition, in f32 and in f64, on the card and on the CPU, beside
+what `gblup` itself runs on each side (card: f64 basis, f32 scan; CPU: f32
+basis, f32 scan), and then `gblup` + `predict` themselves on each side
+(each building its own GRM). Each line gives σ²ₑ, σ²ᵤ and the validation
+y_pred's largest distance over std(y) from the f64 basis + f64 scan on the
+CPU. It imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import genomicbreedingmodels_tpu_torch as gbm  # noqa: E402
 from genomicbreedingmodels_tpu_torch.core.grm import grm_simple  # noqa: E402
 from genomicbreedingmodels_tpu_torch.cv import harness  # noqa: E402
 from genomicbreedingmodels_tpu_torch.models.gblup import reml_variance_components  # noqa: E402
+from genomicbreedingmodels_tpu_torch.models.gwas import _reml_scan  # noqa: E402
 from genomicbreedingmodels_tpu_torch.prediction import extractxyetc  # noqa: E402
 
 
@@ -42,6 +53,55 @@ def gblup_from_eig(X, y, K, denom, eig):
     alpha = U @ ((U.T @ (y - y.mean())) / d)
     b = (su / denom) * ((X - X.mean(axis=0)).T @ alpha)
     return se, su, float(y.mean() - X.mean(axis=0) @ b), b
+
+
+def reml_scan_in(y, K, eig, dev, dtype):
+    """`reml_variance_components` with its scan in `dtype` on `dev`."""
+    s, U = eig
+    sd = y.std(ddof=1)
+    ys = (y - y.mean()) / sd
+    kscale = float(np.mean(np.diag(K)))
+    yt = torch.tensor(U.T @ ys, dtype=dtype, device=dev)
+    ones_t = torch.tensor(U.T @ np.ones(len(y)), dtype=dtype, device=dev)[:, None]
+    _, th = _reml_scan(yt, ones_t[None], torch.tensor(s / kscale, dtype=dtype, device=dev))
+    th = th[0].double().cpu().numpy()
+    return float(th[0] * sd**2), float(th[1] * sd**2 / kscale)
+
+
+def trace_scan(label, X, y, Xv, K, denom, eigs, sd):
+    """The C.2 trace on one training set: REML scan precision and device on
+    the card's f64 basis, against gblup's own two paths."""
+    def effects(se, su, eig):
+        s, U = eig
+        d = np.maximum(su * s + se, 1e-12)
+        b = (su / denom) * ((X - X.mean(axis=0)).T @ (U @ ((U.T @ (y - y.mean())) / d)))
+        return float(y.mean() - X.mean(axis=0) @ b) + Xv @ b
+
+    basis = eigs["card float64"]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        for dt in (torch.float32, torch.float64):
+            runs[f"f64 basis, {str(dt)[6:]} scan on {where}"] = (reml_scan_in(y, K, basis, where, dt), basis)
+    runs["gblup card: f64 basis, f32 scan"] = runs["f64 basis, float32 scan on cuda"]
+    runs["gblup cpu: cpu f32 basis, f32 scan"] = (
+        reml_scan_in(y, K, eigs["cpu float32"], "cpu", torch.float32), eigs["cpu float32"])
+    ref = effects(*runs["f64 basis, float64 scan on cpu"][0], basis)
+    print(f"  C.2 trace, {label}:")
+    for k, ((se, su), eig) in runs.items():
+        dp = np.abs(effects(se, su, eig) - ref).max() / sd
+        print(f"    {k:36s}: sigma2_e {se:.7g} sigma2_u {su:.7g}  max|Δ y_pred|/sd vs f64/f64 {dp:.3g}")
+    return ref
+
+
+def trace_entry(g, ph, idx_training, idx_validation, ref, sd):
+    """`gblup` and `predict` on the card and on the CPU against the trace's
+    f64/f64 validation y_pred."""
+    for where in ("cuda", "cpu"):
+        fit = gbm.gblup(g, ph, idx_entries=idx_training, device=where)
+        dp = np.abs(gbm.predict(fit, g, idx_validation, device=where) - ref).max() / sd
+        ex = fit.extras
+        print(f"    {'gblup + predict on ' + where:36s}: sigma2_e {ex['sigma2_e']:.7g} "
+              f"sigma2_u {ex['sigma2_u']:.7g}  max|Δ y_pred|/sd vs f64/f64 {dp:.3g}")
 
 
 def main() -> int:
@@ -82,6 +142,29 @@ def main() -> int:
             dp = np.abs(b0 + Xv @ b - ref_pred).max() / sd
             print(f"  eigh {k:13s}: max|Δs|/max|K| {ds:.3g}  sigma2_e {se:.6g} sigma2_u {su:.6g}  "
                   f"max|Δ y_pred|/sd {dp:.3g}")
+        ref = trace_scan(job["fold"], X, y, Xv, Kh, grm.denominator, eigs, sd)
+        trace_entry(g, ph, job["idx_training"], job["idx_validation"], ref, sd)
+
+    # chip_smoke.py phase 6's continuous panel and 90 % training split
+    g6 = gbm.simulate_genomes(n=2048, l=16_384, seed=42)
+    t6, _ = gbm.simulate_trials(g6, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=42)
+    ph6 = gbm.extract_phenomes(t6)
+    perm = np.random.default_rng(7).permutation(g6.n)
+    test, train = np.sort(perm[: g6.n // 10]), np.sort(perm[g6.n // 10 :])
+    X, y, e, pops, la = extractxyetc(g6, ph6, idx_entries=train, add_intercept=False)
+    grm = grm_simple(gbm.Genomes(entries=e, populations=pops, loci_alleles=la, allele_frequencies=X),
+                     device="cuda")
+    K = grm.genomic_relationship_matrix.double()
+    K = (K + K.T) / 2.0
+    eigs = {}
+    for where, Kt in (("card", K), ("cpu", K.cpu())):
+        for dt in (torch.float32, torch.float64):
+            sv, Uv = torch.linalg.eigh(Kt.to(dt))
+            eigs[f"{where} {str(dt)[6:]}"] = (np.maximum(sv.double().cpu().numpy(), 0.0), Uv.double().cpu().numpy())
+    sd6 = float(np.std(ph6.phenotypes[:, 0]))
+    ref = trace_scan(f"phase 6 continuous, {len(y)} training entries", X, y, g6.allele_frequencies[test],
+                     K.cpu().numpy(), grm.denominator, eigs, sd6)
+    trace_entry(g6, ph6, train, test, ref, sd6)
     return 0
 
 

@@ -51,3 +51,17 @@ def test_build_failure_raises_with_compiler_output(fake_tree):
     with pytest.raises(RuntimeError, match="expected a declaration"):
         _build.build()
     assert not list(out_dir.glob("*.so")) and not list(out_dir.glob("*.o"))
+
+
+def test_count_launch_records_shapes_and_reset_clears_them(monkeypatch):
+    """A launch counted with its operand's (dtype, n, p) lands in
+    LAUNCH_SHAPES beside the count; reset_launches clears both."""
+    monkeypatch.setattr(_build, "LAUNCHES", {"k": 0})
+    monkeypatch.setattr(_build, "LAUNCH_SHAPES", {"k": set()})
+    _build.count_launch("k", ("int8", 9000, 102000))
+    _build.count_launch("k", ("int8", 9000, 102000))
+    _build.count_launch("k")
+    assert _build.LAUNCHES["k"] == 3
+    assert _build.LAUNCH_SHAPES["k"] == {("int8", 9000, 102000)}
+    _build.reset_launches()
+    assert _build.LAUNCHES["k"] == 0 and not _build.LAUNCH_SHAPES["k"]

@@ -10,7 +10,7 @@ package, so it also runs where only the port is installed:
 import pytest
 import torch
 
-from genomicbreedingmodels_tpu_torch.kernels import gibbs_group, gram_tri
+from genomicbreedingmodels_tpu_torch.kernels import _build, gibbs_group, gram_tri
 
 
 @pytest.fixture
@@ -22,7 +22,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,p", [(64, 512), (129, 257), (1000, 4099)])
+@pytest.mark.parametrize("n,p", [(64, 512), (129, 257), (1000, 4099), (4352, 24576)])
 def test_kernels_match_plain_on_card(cuda_device, n, p):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     D = torch.randint(0, 3, (n, p), dtype=torch.int8, device=cuda_device, generator=g)
@@ -37,6 +37,8 @@ def test_kernels_match_plain_on_card(cuda_device, n, p):
         assert not torch.triu(K, 1).any()
     assert gram_tri.LAUNCHES["gram_tri_int8"] == before["gram_tri_int8"] + 1
     assert gram_tri.LAUNCHES["gram_tri_float"] == before["gram_tri_float"] + 2
+    assert ("int8", n, p) in _build.LAUNCH_SHAPES["gram_tri_int8"]
+    assert {("float32", n, p), ("bfloat16", n, p)} <= _build.LAUNCH_SHAPES["gram_tri_float"]
 
 
 def _check_gram_kernels(D, X_list):
@@ -279,3 +281,94 @@ def test_gblup_training_fold_on_card_matches_cpu(cuda_device):
         assert abs(fits["cuda"].extras[k] - fits["cpu"].extras[k]) <= 1e-3 * abs(fits["cpu"].extras[k]), k
     preds = {d: gbm.predict(f, g, job["idx_validation"], device=d) for d, f in fits.items()}
     assert np.abs(preds["cuda"] - preds["cpu"]).max() <= 1e-3 * np.std(ph.phenotypes[:, 0])
+
+
+def _qtl_panel():
+    """tests/test_gwas.py's `gwas_data` at 256x2048: tetraploid calls, one
+    h² = 0.5 trait of 5 QTL."""
+    import numpy as np
+
+    import genomicbreedingmodels_tpu_torch as gbm
+
+    g = gbm.simulate_genomes(n=256, l=2048, seed=42)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.round(g.allele_frequencies * 4) / 4)
+    pv = np.zeros((9, 1))
+    pv[0, 0] = 0.5
+    tr, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.05, 0.0, 0.0]]),
+                                proportion_of_variance=pv, n_qtl=5, seed=42)
+    return gbm, g, gbm.extract_phenomes(tr)
+
+
+@pytest.mark.cuda
+def test_gwas_on_card_matches_cpu(cuda_device):
+    """gwasols, gwaslmm and gwasreml on the card against device="cpu": the
+    same loci, statistic cor >= 0.999, one argmax marker across all six
+    fits, gwaslmm's σ² within 1e-3 relative."""
+    import numpy as np
+
+    gbm, g, ph = _qtl_panel()
+    fits = {d: {f: getattr(gbm, f)(g, ph, device=d) for f in ("gwasols", "gwaslmm", "gwasreml")}
+            for d in ("cuda", "cpu")}
+    tops = set()
+    for name, a in fits["cuda"].items():
+        b = fits["cpu"][name]
+        assert np.array_equal(a.b_hat_labels, b.b_hat_labels)
+        assert np.all(np.isfinite(a.b_hat)) and np.corrcoef(a.b_hat, b.b_hat)[0, 1] >= 0.999, name
+        tops |= {int(np.argmax(np.abs(a.b_hat))), int(np.argmax(np.abs(b.b_hat)))}
+    assert len(tops) == 1
+    for k in ("sigma2_e", "sigma2_u"):
+        a, b = fits["cuda"]["gwaslmm"].extras[k], fits["cpu"]["gwaslmm"].extras[k]
+        assert abs(a - b) <= 1e-3 * abs(b), k
+
+
+@pytest.mark.cuda
+def test_eigh_device_runs_f64_on_card(cuda_device):
+    """`_eigh_device` on a card f32 GRM returns f32 computed in f64: its
+    spectrum within 1e-6·max|K| of the CPU's f64 one (the card's own f32
+    eigh lies ~6e-4·max|K| away on fold GRMs), its basis orthonormal to
+    f32 rounding."""
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch.ops.linalg import _eigh_device
+
+    gbm, g, _ = _qtl_panel()
+    K = gbm.grm_simple(g, device="cuda").genomic_relationship_matrix
+    s, U = _eigh_device(K)
+    assert s.dtype == U.dtype == torch.float32 and s.is_cuda
+    Kh = K.double().cpu()
+    ref = np.maximum(torch.linalg.eigh(0.5 * (Kh + Kh.T))[0].numpy(), 0.0)
+    scale = float(Kh.abs().max())
+    assert np.abs(s.double().cpu().numpy() - ref).max() <= 1e-6 * scale
+    eye = U.T @ U
+    assert float((eye - torch.eye(len(s), device="cuda")).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ols_folds_on_card_match_f64_lstsq(cuda_device):
+    """`cvbulk`'s OLS on chip_smoke.py phase 10 (a)'s 256x2048 called panel,
+    1x3 folds: the card's validation y_pred within 1e-4·std(y) of an f64
+    numpy min-norm lstsq per fold (the dual solve eigendecomposes through
+    `_eigh_device`, f64 on the card), and within 1e-3·std(y) of
+    device="cpu", whose f32 eigh alone moves y_pred by up to ~7e-4·std(y)."""
+    import numpy as np
+
+    import genomicbreedingmodels_tpu_torch as gbm
+
+    g = gbm.simulate_genomes(n=256, l=2048, seed=5)
+    trials, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=5)
+    ph = gbm.extract_phenomes(trials)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.rint(2.0 * g.allele_frequencies) / 2.0)
+    runs = {d: gbm.cvbulk(g, ph, models=["ols"], n_replications=1, n_folds=3, seed=7, device=d)[0]
+            for d in ("cuda", "cpu")}
+    y = ph.phenotypes[:, 0]
+    sd = np.std(y)
+    X = np.hstack([np.ones((g.n, 1)), g.allele_frequencies])
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert np.array_equal(a.validation_entries, b.validation_entries)
+        va = g.entry_indices(a.validation_entries.tolist())
+        tr = np.setdiff1d(np.arange(g.n), va)
+        ref = X[va] @ np.linalg.lstsq(X[tr], y[tr], rcond=None)[0]
+        assert np.abs(a.y_pred - ref).max() <= 1e-4 * sd
+        assert np.abs(a.y_pred - b.y_pred).max() <= 1e-3 * sd

@@ -273,7 +273,8 @@ def test_stage_timer_threads_and_profile(tmp_path):
 
 def test_port_cv_path_runs_without_jax(tmp_path):
     """In a fresh interpreter where `import jax` fails, the port imports
-    (without pandas too) and runs cvbulk on a tiny panel on the CPU."""
+    (without pandas too) and runs cvbulk, gwasols and gblup_multitrait_cov
+    on a tiny panel on the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -285,6 +286,10 @@ def test_port_cv_path_runs_without_jax(tmp_path):
         p = gt.extract_phenomes(trials)
         cvs, notes = gt.cvbulk(g, p, models=["ols", "ridge"], n_replications=1, n_folds=2, device="cpu")
         assert len(cvs) == 4, len(cvs)
+        assert np.all(np.isfinite(gt.gwasols(g, p, device="cpu").b_hat))
+        trials2, _ = gt.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.0, 0.0], [0.2, 0.0, 0.0]]), seed=2)
+        fits = gt.gblup_multitrait_cov(g, gt.extract_phenomes(trials2), device="cpu")
+        assert len(fits) == 2 and all(np.all(np.isfinite(f.y_pred)) for f in fits)
         loaded = [m for m, mod in sys.modules.items() if mod is not None]
         assert not any(m.startswith(("jax", "genomicbreedingmodels_tpu.")) or m == "genomicbreedingmodels_tpu"
                        for m in loaded), "jax or the JAX package was imported"

@@ -180,3 +180,44 @@ def test_3xtf32_model_matches_float64_and_pallas(n, p):
     assert not np.triu(L, 1).any()
     pallas = np.tril(np.asarray(grm_pallas(X, center=False)))
     assert np.abs(L - pallas).max() <= K2_TOL * scale
+
+
+@pytest.fixture(scope="module")
+def tile_cursor_exe(tmp_path_factory):
+    """The kernel header's tile enumeration (`TileCursor`, with the constants
+    above it) compiled for the host by the system C++ compiler: prints the
+    (row block, column block) tiles for `n bm bn` in the kernel's order."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the header's TileCursor")
+    header = (Path(gram_tri.__file__).resolve().parent.parent / "csrc" / "gram_tri_sm90.cuh").read_text()
+    m = re.search(r"namespace gbm_sm90 \{\n(.*?)// ---- PTX helpers", header, re.S)
+    d = tmp_path_factory.mktemp("tile_cursor")
+    (d / "main.cpp").write_text(
+        "#include <cstdio>\n#include <cstdlib>\n#define __host__\n#define __device__\n"
+        "namespace gbm_sm90 {\n" + m.group(1) + "}\n"
+        "int main(int argc, char** argv) {\n"
+        "  gbm_sm90::TileCursor cur(atoll(argv[1]), atoi(argv[2]), atoi(argv[3]));\n"
+        "  int i, j;\n  while (cur.next(i, j)) std::printf(\"%d %d\\n\", i, j);\n  return 0;\n}\n")
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(d / "tiles"), str(d / "main.cpp")], check=True)
+    return d / "tiles"
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 4097, 8192, 10000])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32], ids=["bn256", "bn128"])
+def test_kernel_tile_cursor_visits_tile_order_once(tile_cursor_exe, n, dtype):
+    # Past GROUP row blocks the header's cursor must start each group at its
+    # own first row block: a cursor that revisits column 0 of earlier row
+    # blocks adds split tiles twice (atomics) and wastes a wave unsplit.
+    import subprocess
+
+    bm, bn = gram_tri.TILE_M[dtype], gram_tri.TILE_N[dtype]
+    out = subprocess.run([str(tile_cursor_exe), str(n), str(bm), str(bn)], capture_output=True,
+                         text=True, check=True).stdout.split()
+    tiles = [(int(a), int(b)) for a, b in zip(out[::2], out[1::2])]
+    assert tiles == gram_tri.tile_order(n, bm, bn)
