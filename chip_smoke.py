@@ -28,7 +28,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    every Cb row staged in shared memory) and at bs=8192 with K=8 and the last
    7 markers invalid (the rows staged in part, the rest read from L2); timed
    per block and per group at bs=600, K=6 and K=8, with Cb cold in L2, as
-   the chain finds it, and warm;
+   the chain finds it, and warm; the fold-batched launch at bs=258, K=6 for
+   15 folds against 15 single launches (bit-equal) and the plain version,
+   timed with Cb cold beside 15 single launches;
 6. the public API: simulate -> `gblup` on a continuous panel (K2) and on the
    called panel (K1) -> `predict`, each checked against the same calls with
    device="cpu" (the plain versions);
@@ -62,18 +64,30 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    simulated ones, the noisy trait against its single-trait `gblup`),
    `gblup_multitrait` on the complete traits, the card against device="cpu"
    on a 512x4096 cut, and `gblup_multienv` on a 3-year x 2-site trial set on
-   phase 6's panel, card against device="cpu" and against an all-f64 fit.
+   phase 6's panel, card against device="cpu" and against an all-f64 fit;
+13. fold-batched Bayesian CV (`fold_phase`): pinned-variance BRR fold chains
+   against each fold's closed form and `cvbulk_batched` bayesc on the card
+   against device="cpu" at 256x2048 (1x3 folds), the chain's first
+   fold-batched K3 call against its single launches and the plain version;
+   the cv cell at 2048x32768, 3x5 folds, over bayesc, bayesian_ridge and
+   bayesian_lasso at 200 sweeps, cold and warm (K3 once per block and sweep
+   for all 15 folds), beside phase 10 (c)'s `cvbulk` bayesc per fold;
+14. epistasis (`epistasis_phase`): `transform2` (mult, addnorm, raise_) on
+   the card against device="cpu" at 256x2048; the JAX bench's `epistasis`
+   cell (512x16384, k=1000, mult and addnorm, cold and warm, pairs/s);
+   `epistasisfeatures` (n_reps=1) at 512x2048 and its round-trip.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
 held against its plain version once more, on the first block of phase 7's
 chain as the chain called it. Phase 10 runs with the counters reset again
 and read after it, and every kernel must have launched there too; so do
-phases 11 (K2 must launch) and 12 (K1 or K2 must launch). After each of
-phases 5-9, 10, 11 and 12 is read, K1 and K2 are held against their plain
-versions at every operand shape the phase launched them at that no earlier
-check held (`hold_launched_shapes`). Then phase 7's panel goes through the
-profiler.
+phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
+launch) and 14 (no hand kernel on its path). After each of phases 5-9, 10,
+11, 12, 13 and 14 is read, K1 and K2 are held against their plain versions
+at every operand shape, and K3 at every (folds, bs, K), the phase launched
+them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
+panel goes through the profiler.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failed check raises, so the script exits non-zero and
 prints no result. TF32 is off for every float32 matmul (the plain versions
@@ -284,17 +298,106 @@ def k3_check(args: list, K: int, label: str) -> float:
     tol = K3_TOL * max(1.0, float(b_p.abs().max()))
     same = torch.equal(incl, incl_p)
     invalid = args[4] == 0
-    zero_invalid = not bool(b[invalid].any() or incl[invalid].any())
+    zero_invalid = not bool(b[..., invalid].any() or incl[..., invalid].any())
     finite = bool(torch.isfinite(b).all() and torch.isfinite(d).all())
-    print(f"K3 {label}: incl_identical={same} included={int(incl.sum())}/{len(b)} "
+    print(f"K3 {label}: incl_identical={same} included={int(incl.sum())}/{b.numel()} "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) invalid_zero={zero_invalid} finite={finite}")
     check(same and err <= tol and zero_invalid and finite, f"K3 at {label}")
     return err
 
 
+def k3_fold_inputs(dev, gen, F: int, bs: int, K: int, n_invalid: int = 0) -> list:
+    """F blocks as the fold chain hands them to K3, stacked on a fold axis:
+    each fold's Cb, u, effects and noise from its own panel, σ²ₑ and π per
+    fold, the validity mask shared."""
+    import torch
+
+    blocks = [k3_inputs(dev, gen, bs, K, n_invalid=n_invalid) for _ in range(F)]
+    args = [torch.stack([blk[i] for blk in blocks]) for i in range(9)]
+    args[4] = blocks[0][4]
+    args[7] = args[7] * torch.linspace(0.7, 1.3, F, device=dev)
+    args[8] = args[8] * torch.linspace(0.5, 2.0, F, device=dev)
+    return args
+
+
+def k3_fold_check(args: list, K: int, label: str) -> float:
+    """The fold-batched K3 call against F single launches (bit-equal) and
+    against the plain version on the same inputs (identical selections,
+    draws within K3_TOL); returns max |err| against the plain version."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.kernels.gibbs_group import (
+        grouped_block_update,
+        grouped_block_update_plain,
+    )
+
+    F = args[0].shape[0]
+    out = grouped_block_update(*args, K=K)
+    singles = [grouped_block_update(*(a if i == 4 else a[f].contiguous() for i, a in enumerate(args)),
+                                    K=K) for f in range(F)]
+    ref = grouped_block_update_plain(*args, K=K)
+    torch.cuda.synchronize()
+    bitequal = all(torch.equal(x[f], r) for f in range(F) for x, r in zip(out, singles[f]))
+    same = torch.equal(out[2], ref[2])
+    err = max(float((out[1] - ref[1]).abs().max()), float((out[0] - ref[0]).abs().max()))
+    tol = K3_TOL * max(1.0, float(ref[1].abs().max()))
+    finite = bool(torch.isfinite(out[1]).all())
+    print(f"K3 fold-batched {label}: equal to {F} single launches={bitequal} incl_identical={same} "
+          f"included={int(out[2].sum())}/{out[2].numel()} max_abs_err={err:.3g} (tol {tol:.3g}) "
+          f"finite={finite}")
+    check(bitequal and same and err <= tol and finite, f"fold-batched K3 at {label}")
+    return err
+
+
+def keys(cvs):
+    return [(cv.fit.trait, cv.fit.model, cv.replication, cv.fold) for cv in cvs]
+
+
+def run_checked(dev, fn, *args, **kw):
+    """fn(*args, **kw) with its warnings recorded and its wall seconds (the
+    call ends in read-backs); fails on a model-fitting or CV warning."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    msgs = [str(w.message) for w in rec]
+    for m in msgs:
+        print(f"  warning: {m[:200]}")
+    bad = [m for m in msgs if "model-fitting error" in m or "cross-validation error" in m]
+    check(not bad, f"{getattr(fn, '__name__', fn)}: no model-fitting warning")
+    return out, t
+
+
+def cv_cell(gbm, n: int, p: int):
+    """The JAX bench's `cv` cell (bench.py:610-659): an n x p uniform panel
+    from rng(11), 1 % causal, h2 ~ 0.5; (Genomes, Phenomes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    freq = rng.uniform(size=(n, p)).astype(np.float32)
+    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
+                    populations=np.array(["pop_1"] * n),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
+                    allele_frequencies=freq)
+    beta = rng.normal(size=p) * (rng.uniform(size=p) < 0.01)
+    yy = freq @ beta
+    yy = yy + rng.normal(size=n) * yy.std()
+    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                     phenotypes=yy[:, None])
+    return G, P
+
+
 def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     """Phase 10, cross-validation on the card, with the launch counters set
-    to 0 just before it; returns the counts it launched. `width` is (n, p)
+    to 0 just before it; returns the counts it launched and part (c)'s wall
+    seconds per model. `width` is (n, p)
     of parts (b)-(c); a rehearsal on the host passes a small one.
 
     (a) at n=256, p=2048 (simulated, called to {0, ½, 1}, so gblup's GRM
@@ -314,7 +417,6 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     (d) `validate` raises on a train/validation overlap.
     """
     import dataclasses
-    import warnings
 
     import numpy as np
     import torch
@@ -322,28 +424,8 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     from genomicbreedingmodels_tpu_torch.cv import batched as cv_batched
     from genomicbreedingmodels_tpu_torch.utils import config
 
-    def keys(cvs):
-        return [(cv.fit.trait, cv.fit.model, cv.replication, cv.fold) for cv in cvs]
-
-    def harness_warnings(rec):
-        msgs = [str(w.message) for w in rec]
-        return [m for m in msgs if "model-fitting error" in m or "cross-validation error" in m], msgs
-
     def run(fn, *args, **kw):
-        """fn(*args, **kw) with its warnings recorded and its wall seconds
-        (the call ends in read-backs); fails on a harness warning."""
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            if torch.device(dev).type == "cuda":
-                torch.cuda.synchronize()
-            t = time.perf_counter() - t0
-        bad, msgs = harness_warnings(rec)
-        for m in msgs:
-            print(f"  warning: {m[:200]}")
-        check(not bad, f"{getattr(fn, '__name__', fn)}: no model-fitting warning")
-        return out, t
+        return run_checked(dev, fn, *args, **kw)
 
     gbm.reset_launches()
 
@@ -383,17 +465,7 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     # -- (b) the bench's cv cell at full width ----------------------------------------
     (n, p), reps, folds = width, 3, 5
     models = ("ridge", "gblup", "lasso")
-    rng = np.random.default_rng(11)
-    freq = rng.uniform(size=(n, p)).astype(np.float32)
-    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
-                    populations=np.array(["pop_1"] * n),
-                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
-                    allele_frequencies=freq)
-    beta = rng.normal(size=p) * (rng.uniform(size=p) < 0.01)
-    yy = freq @ beta
-    yy = yy + rng.normal(size=n) * yy.std()
-    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
-                     phenotypes=yy[:, None])
+    G, P = cv_cell(gbm, n, p)
     gbm.clear_device_caches()
     before = dict(gbm.LAUNCHES)
     for call in ("cold", "warm"):
@@ -414,12 +486,12 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     config.set_config(dataclasses.replace(cfg, mcmc_n_iter=200, mcmc_n_burnin=50))
     try:
         before = dict(gbm.LAUNCHES)
-        one = {}
+        one, seconds = {}, {}
         for m in ("ols", "ridge", "lasso", "gblup", "bayesc", "mlp"):
             k0 = dict(gbm.LAUNCHES)
             (cvs, _), t = run(gbm.cvbulk, G, P, models=[m], n_replications=1, n_folds=5, seed=3,
                               n_workers=1, device=dev)
-            one[m] = cvs
+            one[m], seconds[m] = cvs, t
             ks = {k: gbm.LAUNCHES[k] - k0[k] for k in k0 if gbm.LAUNCHES[k] > k0[k]}
             cor = float(np.mean([cv.metrics["cor"] for cv in cvs]))
             print(f"CV (c) cvbulk {m} {n}x{p} 1x5 folds: {t:.3f} s ({t / 5:.3f} s per fit+validate), "
@@ -453,7 +525,7 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     check(leak_raised, "validate raises on train/validation overlap")
     print("CV (d) validate on overlapping entries: raised the leakage error")
 
-    return dict(gbm.LAUNCHES)
+    return dict(gbm.LAUNCHES), seconds
 
 
 def upload_line(freq, card: str) -> None:
@@ -531,9 +603,10 @@ def hold_launched_shapes(held: dict, gen, phase: str) -> None:
     """Holds K1 and K2 against their plain versions at every operand shape
     the phase just run launched them at (`_build.LAUNCH_SHAPES`) that no
     earlier check held, on random panels of that shape and type as phases
-    3-4 make them (dosages in {0, 1, 2}; uniform [0, 1) in f32 or bf16).
-    Runs after the phase's counts were read: these launches do not count.
-    Adds each shape to `held` (kernel -> set of (dtype, n, p))."""
+    3-4 make them (dosages in {0, 1, 2}; uniform [0, 1) in f32 or bf16), and
+    K3 at every (folds, bs, K) it launched at (`k3_fold_check` on random
+    blocks). Runs after the phase's counts were read: these launches do not
+    count. Adds each shape to `held` (kernel -> set of shapes)."""
     import torch
 
     from genomicbreedingmodels_tpu_torch.kernels import _build
@@ -546,6 +619,11 @@ def hold_launched_shapes(held: dict, gen, phase: str) -> None:
 
     todo = sorted((name, key) for name in ("gram_tri_int8", "gram_tri_float")
                   for key in _build.LAUNCH_SHAPES[name] - held[name])
+    k3_todo = sorted(_build.LAUNCH_SHAPES["gibbs_group"] - held["gibbs_group"])
+    for F, bs, K in k3_todo:  # K3 at each (folds, bs, K) it launched at
+        k3_fold_check(k3_fold_inputs("cuda", gen, F, bs, K, n_invalid=3), K,
+                      f"F={F} bs={bs} K={K} as launched in {phase}")
+        held["gibbs_group"].add((F, bs, K))
     for name, (dt, n, p) in todo:
         if name == "gram_tri_int8":
             D = torch.randint(0, 3, (n, p), dtype=torch.int8, device="cuda", generator=gen)
@@ -569,8 +647,8 @@ def hold_launched_shapes(held: dict, gen, phase: str) -> None:
         held[name].add((dt, n, p))
         del K, R
     torch.cuda.empty_cache()
-    print(f"{phase}: K1/K2 held against their plain versions at {len(todo)} more shape(s) it launched; "
-          f"every launched shape is now held")
+    print(f"{phase}: K1/K2 held against their plain versions at {len(todo)} and K3 at "
+          f"{len(k3_todo)} more shape(s) it launched; every launched shape is now held")
 
 
 GWAS_SCANS = ("gwasols", "gwaslmm", "gwasreml")
@@ -888,6 +966,232 @@ def multitrait_phase(gbm, dev, card, X_big, g_env, n_cut: int = 512, p_cut: int 
     return launched
 
 
+# Phase 13: pinned BRR folds against their closed form (GEBV correlation);
+# BayesC fold chains on the card against device="cpu" (pooled y_pred
+# correlation: two chains of other generators, 150 kept sweeps each).
+FOLD_CLOSED_COR, FOLD_CARD_CPU_COR = 0.999, 0.95
+FOLD_SWEEPS, FOLD_BURN = 200, 50  # the chains of phase 13 (b), as phase 10 (c)'s
+K3_FOLDS = 15  # the cv cell's 3 x 5 folds
+# Phase 14: selected names outside boundary ties (float64 |slope| within this
+# of the k-th selected one), and values of common names.
+EPI_BOUNDARY_REL, EPI_VALUE_TOL = 1e-5, 1e-6
+
+
+def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)) -> dict:
+    """Phase 13, the fold-batched Bayesian CV chains, with the launch
+    counters set to 0 just before it; returns the counts it launched.
+
+    (a) at n=256, p=2048 (phase 10 (a)'s called panel), 1 x 3 folds:
+    pinned-variance BRR fold chains on the card, each fold's GEBVs against
+    its training rows' closed-form conjugate mean (cor >= FOLD_CLOSED_COR);
+    `cvbulk_batched` over bayesc on the card and with device="cpu" (the same
+    tags and validation entries, pooled y_pred cor >= FOLD_CARD_CPU_COR);
+    the chain's first fold-batched K3 call held against its three single
+    launches and the plain version, after the phase's counts are read;
+    (b) the JAX bench's `cv` cell (2048x32768, 3x5 folds) through
+    `cvbulk_batched` over bayesc, bayesian_ridge and bayesian_lasso at 200
+    sweeps (50 burn-in), cold and warm: stage split, K3 launched sweeps x
+    blocks times per bayesc call (one launch per block for all 15 folds),
+    peak memory, and bayesc's time per fold beside phase 10 (c)'s `cvbulk`
+    (`cvbulk_bayesc_s`, 5 folds)."""
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.cv import batched as cv_batched
+
+    bayes_mod = importlib.import_module("genomicbreedingmodels_tpu_torch.models.bayesian")
+    on_card = torch.device(dev).type == "cuda"
+    gbm.reset_launches()
+
+    # -- (a) small: the closed form, the card against the CPU, the first K3 call ----------
+    g = gbm.simulate_genomes(n=256, l=2048, seed=5)
+    trials, _ = gbm.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.05, 0.05]]), seed=5)
+    ph = gbm.extract_phenomes(trials)
+    g = gbm.Genomes(entries=g.entries, populations=g.populations, loci_alleles=g.loci_alleles,
+                    allele_frequencies=np.rint(2.0 * g.allele_frequencies) / 2.0)
+    X, y = g.allele_frequencies, ph.phenotypes[:, 0]
+    labels = np.random.default_rng(7).integers(0, 3, size=g.n)
+    masks = np.stack([labels != f for f in range(3)]).astype(np.float32)
+    sig_e2 = 0.5 * float(np.var(y))
+    sig_b2 = 0.5 * float(np.var(y)) / float(np.sum(np.var(X, axis=0)))
+    t0 = time.perf_counter()
+    mu, b = gbm.gibbs_cv_folds(X, y, masks, model="BRR", n_iter=3200, n_burnin=200, seed=3,
+                               fix_sigma_e2=sig_e2, fix_sigma_b2=sig_b2, device=dev)
+    t = time.perf_counter() - t0
+    cors = []
+    for f in range(3):
+        m = masks[f] > 0
+        Z, yc = X[m] - X[m].mean(0), y[m] - y[m].mean()
+        alpha = np.linalg.solve(Z @ Z.T + (sig_e2 / sig_b2) * np.eye(int(m.sum())), yc)
+        b_star = Z.T @ alpha  # the ridge mean in its dual form (p > n)
+        cors.append(float(np.corrcoef(mu[f] + X @ b[f], y[m].mean() + (X - X[m].mean(0)) @ b_star)[0, 1]))
+    print(f"folds (a) pinned BRR 256x2048 1x3 folds, 3000 kept sweeps: GEBV cor with each fold's "
+          f"closed form {', '.join(f'{c:.6f}' for c in cors)}; {t:.3f} s {card}")
+    check(min(cors) >= FOLD_CLOSED_COR, "pinned BRR folds against their closed form")
+
+    first = []
+    kernel_step = bayes_mod._block_kernel
+
+    def keep_first(*args):
+        if not first:
+            first.extend(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return kernel_step(*args)
+
+    kw = dict(models=("bayesc",), n_replications=1, n_folds=3, seed=7, mcmc_n_iter=FOLD_SWEEPS,
+              mcmc_n_burnin=FOLD_BURN)
+    bayes_mod._block_kernel = keep_first
+    try:
+        k0 = gbm.LAUNCHES["gibbs_group"]
+        (card_cvs, _), t_card = run_checked(dev, gbm.cvbulk_batched, g, ph, device=dev, **kw)
+        k3_small = gbm.LAUNCHES["gibbs_group"] - k0
+    finally:
+        bayes_mod._block_kernel = kernel_step
+    (cpu_cvs, _), t_cpu = run_checked("cpu", gbm.cvbulk_batched, g, ph, device="cpu", **kw)
+    check(keys(card_cvs) == keys(cpu_cvs) and len(card_cvs) == 3, "bayesc folds: the same CV tags")
+    check(all(np.array_equal(a.validation_entries, c.validation_entries)
+              for a, c in zip(card_cvs, cpu_cvs)), "bayesc folds: the same validation entries")
+    ya = np.concatenate([cv.y_pred for cv in card_cvs])
+    yb = np.concatenate([cv.y_pred for cv in cpu_cvs])
+    cor = float(np.corrcoef(ya, yb)[0, 1])
+    print(f"folds (a) cvbulk_batched bayesc 256x2048 1x3 folds, {FOLD_SWEEPS} sweeps: pooled y_pred "
+          f"cor card vs cpu {cor:.5f}; K3 launches {k3_small}; card {t_card:.3f} s, cpu {t_cpu:.3f} s "
+          f"{card}")
+    check(np.all(np.isfinite(ya)) and cor >= FOLD_CARD_CPU_COR, "bayesc folds: card against cpu")
+    if on_card:
+        check(k3_small == FOLD_SWEEPS * 8, "bayesc folds 256x2048: one K3 launch per block and sweep")
+
+    # -- (b) the cv cell at width: three Bayesian models over 15 folds, cold and warm --------
+    (n, p), reps, folds = width, 3, 5
+    models = ("bayesc", "bayesian_ridge", "bayesian_lasso")
+    G, P = cv_cell(gbm, n, p)
+    bs = 258  # mcmc_block_size 256 rounded up to whole groups of K = 6
+    n_blocks = -(-p // bs)
+    gbm.clear_device_caches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for call in ("cold", "warm"):
+        k0 = gbm.LAUNCHES["gibbs_group"]
+        (cvs, _), t = run_checked(dev, gbm.cvbulk_batched, G, P, models=models, n_replications=reps,
+                                  n_folds=folds, store_effects=False, mcmc_n_iter=FOLD_SWEEPS,
+                                  mcmc_n_burnin=FOLD_BURN, device=dev)
+        k3 = gbm.LAUNCHES["gibbs_group"] - k0
+        stages = cv_batched.LAST_TIMER.summary()
+        split = " ".join(f"{k}={v['total_s']:.3f}s" for k, v in stages.items())
+        print(f"folds (b) cvbulk_batched {n}x{p} {reps}x{folds} folds x {len(models)} Bayesian models, "
+              f"{FOLD_SWEEPS} sweeps, {call}: {t:.3f} s ({split}); K3 launches {k3} {card}")
+        check(len(cvs) == reps * folds * len(models), f"Bayesian cv cell {call}: 45 CVs")
+        check(all(np.isfinite(cv.metrics["cor"]) and np.all(np.isfinite(cv.y_pred)) for cv in cvs),
+              f"Bayesian cv cell {call}: finite metrics")
+        if on_card:
+            check(k3 == FOLD_SWEEPS * n_blocks,
+                  f"Bayesian cv cell {call}: K3 launched sweeps x blocks = {FOLD_SWEEPS * n_blocks} times")
+        per_fold = stages["bayesc_solve"]["total_s"] / (reps * folds)
+        print(f"folds (b) bayesc per fold: {per_fold:.4f} s fold-batched (bayesc_solve / {reps * folds}) "
+              f"against {cvbulk_bayesc_s / 5:.4f} s per fold for phase 10 (c)'s cvbulk, "
+              f"{cvbulk_bayesc_s / 5 / per_fold:.1f}x {card}")
+    cors = {m: float(np.mean([cv.metrics["cor"] for cv in cvs if cv.fit.model == m])) for m in models}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    print("folds (b) mean validation cor: " + " ".join(f"{m}={c:.4f}" for m, c in cors.items())
+          + f"; peak memory {peak:.2f} GiB {card}")
+    counts = dict(gbm.LAUNCHES)  # the path's own launches; the hold below launches K3 too
+    if on_card:  # (a)'s first fold-batched block against its single launches and the plain version
+        Fk, bs_k = first[0].shape[0], first[0].shape[-1]
+        k3_fold_check(first[:9], first[9], f"F={Fk} bs={bs_k} K={first[9]}, the chain's first block")
+    return counts
+
+
+def epistasis_phase(gbm, dev, card: str, small=(256, 2048), cell=(512, 16_384),
+                    features=(512, 2048)) -> dict:
+    """Phase 14, the epistasis feature engine, with the launch counters set
+    to 0 just before it; returns the counts (it runs no hand kernel: the
+    pair scan is XLA in the JAX package and torch products here).
+
+    (a) `transform2` with mult, addnorm and raise_ at n x l = `small`, the
+    card against device="cpu": the same selected names outside boundary
+    ties (float64 |slope| within EPI_BOUNDARY_REL of the k-th) and the same
+    values (EPI_VALUE_TOL) on common names;
+    (b) the JAX bench's `epistasis` cell (bench.py:530-560, n=512,
+    l=16384, k=1000) with mult and addnorm, cold (device caches cleared)
+    and warm, as seconds and pairs/s = l²/t; then `epistasisfeatures` with
+    n_reps=1 at `features`."""
+    import numpy as np
+    import torch
+
+    gbm.reset_launches()
+
+    def panel(n, l, seed):
+        rng = np.random.default_rng(seed)
+        freq = rng.uniform(size=(n, l))
+        G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
+                        populations=np.array(["pop_1"] * n),
+                        loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(l)]),
+                        allele_frequencies=freq)
+        yy = freq[:, :32] @ rng.normal(size=32) + rng.normal(size=n)
+        return G, gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                               phenotypes=yy[:, None])
+
+    def slopes(out, yy):
+        T = out.allele_frequencies
+        Tm, ym = T - T.mean(0), yy - yy.mean()
+        return np.abs((Tm.T @ ym) / np.maximum((Tm * Tm).sum(0), 1e-30))
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    # -- (a) card against the CPU ---------------------------------------------------------
+    G, P = panel(*small, seed=5)
+    yy = P.phenotypes[:, 0]
+    for f in (gbm.mult, gbm.addnorm, gbm.raise_):
+        outs, secs = {}, {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            outs[d] = gbm.transform2(f, G, P, device=d)
+            sync()
+            secs[d] = time.perf_counter() - t0
+        a, c = outs[dev], outs["cpu"]
+        na, nc = list(a.loci_alleles), list(c.loci_alleles)
+        sa, sc = dict(zip(na, slopes(a, yy))), dict(zip(nc, slopes(c, yy)))
+        kth = min(sc.values())
+        diff = set(na) ^ set(nc)
+        outside = [nm for nm in diff if abs(sa.get(nm, sc.get(nm)) - kth) > EPI_BOUNDARY_REL * kth]
+        common = [nm for nm in nc if nm in sa]
+        err = float(np.abs(a.allele_frequencies[:, [na.index(nm) for nm in common]]
+                           - c.allele_frequencies[:, [nc.index(nm) for nm in common]]).max())
+        print(f"epistasis (a) transform2 {f.__name__} {small[0]}x{small[1]}: {len(na)} features, "
+              f"{len(diff)} names differ card vs cpu ({len(outside)} outside boundary ties), "
+              f"max |Δ value| {err:.3g}; card {secs[dev]:.3f} s, cpu {secs['cpu']:.3f} s {card}")
+        check(len(na) == len(nc) > 0 and not outside and err <= EPI_VALUE_TOL,
+              f"transform2 {f.__name__}: card against cpu")
+
+    # -- (b) the bench's epistasis cell, cold and warm -------------------------------------
+    n, l = cell
+    G, P = panel(n, l, seed=5)
+    for f in (gbm.mult, gbm.addnorm):
+        gbm.clear_device_caches()
+        for call in ("cold", "warm"):
+            t0 = time.perf_counter()
+            out = gbm.transform2(f, G, P, n_new_features_per_transformation=1000, device=dev)
+            sync()
+            t = time.perf_counter() - t0
+            print(f"epistasis (b) transform2 {f.__name__} {n}x{l} k=1000, {call}: {t:.3f} s, "
+                  f"{l * l / t:.4g} pairs/s, {out.p} features {card}")
+            check(out.p > 0 and np.all(np.isfinite(out.allele_frequencies)),
+                  f"epistasis cell {f.__name__} {call}")
+    G, P = panel(*features, seed=6)
+    t0 = time.perf_counter()
+    out = gbm.epistasisfeatures(G, P, n_reps=1, device=dev)
+    sync()
+    t = time.perf_counter() - t0
+    A = out.allele_frequencies
+    print(f"epistasis (b) epistasisfeatures n_reps=1 {features[0]}x{features[1]}: {t:.3f} s, "
+          f"{out.p - G.p} new features {card}")
+    check(out.p > G.p and A.min() >= 0.0 and A.max() <= 1.0 + 1e-12, "epistasisfeatures in [0, 1]")
+    rec = gbm.reconstitutefeatures(G, [str(nm) for nm in out.loci_alleles])
+    check(np.array_equal(rec.allele_frequencies, A), "reconstitutefeatures round-trips")
+    return dict(gbm.LAUNCHES)
+
+
 def main() -> int:
     import torch
 
@@ -1106,7 +1410,30 @@ def main() -> int:
                                               bound_by=bound_by, library_ms=None, library="none",
                                               warm_ms=warm_ms, us_per_group=ms / G * 1e3)
                 print(f"K3 bs={bs} K={K}: bound {bound_ms * 1e3:.3f} us ({bound_by})")
-    del flush
+    # The fold-batched launch at the cv cell's block (bs=258, K=6) for its 15
+    # folds: against 15 single launches and the plain version, then timed with
+    # Cb cold beside its bound (15 Cb slabs dominate the bytes) and 15 single
+    # launches.
+    bs, K, F = 258, 6, K3_FOLDS
+    args = k3_fold_inputs(dev, gen, F, bs, K, n_invalid=5)
+    k3_errs.append(k3_fold_check(args, K, f"F={F} bs={bs} K={K} last 5 invalid"))
+    singles = [[a if i == 4 else a[f].contiguous() for i, a in enumerate(args)] for f in range(F)]
+    fold_ms = cuda_ms(lambda: (flush.zero_(), grouped_block_update(*args, K=K)), reps=50) - flush_ms
+    singles_ms = cuda_ms(lambda: (flush.zero_(), [grouped_block_update(*a, K=K) for a in singles]),
+                         reps=20) - flush_ms
+    fold_plain_ms = cuda_ms(lambda: (flush.zero_(), grouped_block_update_plain(*args, K=K)),
+                            reps=3) - flush_ms
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 3 * F * bs * 4
+    fold_bound_ms, fold_bound_by = bound(F * (bs // K) * 2**K * (K**3 / 3 + 2 * K * K), PEAK["f32"],
+                                         nbytes)
+    print(f"K3 fold-batched F={F} bs={bs} K={K}: {fold_ms:.4f} ms per launch, cold L2 "
+          f"({fold_ms / F * 1e3:.2f} us per fold-block), bound {fold_bound_ms * 1e3:.3f} us "
+          f"({fold_bound_by}: {F} Cb slabs {F * bs * bs * 4 / 1e6:.2f} MB); {F} single launches "
+          f"{singles_ms:.4f} ms; plain {fold_plain_ms:.4f} ms {card}")
+    records["gibbs_group"].update(fold_F=F, fold_bs=bs, fold_K=K, fold_ms=fold_ms,
+                                  fold_singles_ms=singles_ms, fold_plain_ms=fold_plain_ms,
+                                  fold_bound_ms=fold_bound_ms, fold_bound_by=fold_bound_by)
+    del flush, args, singles
 
     # The shapes phases 3-4 held K1 and K2 at; every later phase holds the
     # shapes it launched them at and these did not cover (`hold_launched_shapes`).
@@ -1289,7 +1616,7 @@ def main() -> int:
 
     # -- 10. cross-validation, counters from zero -----------------------------------
     t0 = time.perf_counter()
-    cv_launches = cv_phase(gbm, dev, card)
+    cv_launches, cv_seconds = cv_phase(gbm, dev, card)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; launches in phase 10: {cv_launches}")
     for name, count in cv_launches.items():
         check(count > 0, f"{name} launched in phase 10")
@@ -1304,6 +1631,19 @@ def main() -> int:
     mt_launches = multitrait_phase(gbm, dev, card, X, genomes)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s; launches in phase 12: {mt_launches} {card}")
     hold_launched_shapes(held, gen, "phase 12")
+
+    # -- 13. fold-batched Bayesian CV and 14. epistasis, counters from zero for each ----
+    t0 = time.perf_counter()
+    fold_launches = fold_phase(gbm, dev, card, cv_seconds["bayesc"])
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s; launches in phase 13: {fold_launches} {card}")
+    check(fold_launches["gibbs_group"] > 0 and fold_launches["gram_tri_float"] > 0,
+          "phase 13 launched K2 and K3")
+    hold_launched_shapes(held, gen, "phase 13")
+    t0 = time.perf_counter()
+    epi_launches = epistasis_phase(gbm, dev, card)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s; launches in phase 14: {epi_launches} "
+          f"(the pair scan runs torch products, no hand kernel) {card}")
+    hold_launched_shapes(held, gen, "phase 14")
 
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
@@ -1341,9 +1681,11 @@ def main() -> int:
     records["gram_tri_float"]["shapes"] = k2_shapes
     for name in ("gram_tri_int8", "gram_tri_float"):  # every shape held against the plain version
         records[name]["held_shapes"] = [f"{dt} {n}x{p}" for dt, n, p in sorted(held[name])]
-    kernels = [  # launches: phases 5-9, 10, 11 and 12, each counted from zero
+    records["gibbs_group"]["fold_launches"] = fold_launches["gibbs_group"] + epi_launches["gibbs_group"]
+    kernels = [  # launches: phases 5-9, 10, 11, 12, 13 and 14, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + cv_launches[name] + gwas_launches[name] + mt_launches[name],
+         "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
+                                           fold_launches, epi_launches)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]

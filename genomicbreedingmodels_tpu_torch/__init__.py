@@ -15,7 +15,11 @@ grouped Gibbs block update K3 as a hand-written CUDA kernel; the linear zoo
 `tabularise`/`summarise`); the GWAS suite (`gwasprep`, `gwasols`,
 `gwaslmm`, `gwasreml`) and multi-trait / multi-environment GBLUP
 (`gblup_multitrait`, `gblup_multitrait_cov`, `gblup_multienv`,
-`mtgblup_em`). Every public entry point takes `device=`
+`mtgblup_em`); the fold-batched Bayesian CV chains (`gibbs_cv_folds`, the
+eight Bayesian names of `cvbulk_batched`), whose indicator models run K3 for
+every fold in one launch per block; and the epistasis feature engine (the
+six endofunctions, `transform1`, `transform2`, `epistasisfeatures`,
+`reconstitutefeatures`, `parse_feature_name`). Every public entry point takes `device=`
 (default "cuda"); `device="cpu"` runs the kernels' plain PyTorch versions.
 """
 
@@ -50,6 +54,7 @@ from .models.bayesian import (
     bayest,
     bayestpi,
     bglr,
+    gibbs_cv_folds,
     gibbs_regression,
 )
 from .models.linear import lasso, ols, ridge
@@ -66,6 +71,21 @@ from .cv.harness import (
     validate,
 )
 from .cv.batched import cvbulk_batched
+from .features.endofunctions import (
+    addnorm,
+    invoneplus,
+    log10epsdivlog10eps,
+    mult,
+    raise_,
+    square,
+)
+from .features.transform import (
+    epistasisfeatures,
+    parse_feature_name,
+    reconstitutefeatures,
+    transform1,
+    transform2,
+)
 from .utils.devcache import clear_device_caches
 from .kernels._build import LAUNCHES, reset_launches
 
@@ -104,6 +124,7 @@ __all__ = [
     "gwasreml",
     "loglikreml",
     "gibbs_regression",
+    "gibbs_cv_folds",
     "bglr",
     "bayesian",
     "bayesa",
@@ -130,6 +151,17 @@ __all__ = [
     "cvleaveonepopulationout",
     "tabularise",
     "summarise",
+    "square",
+    "invoneplus",
+    "log10epsdivlog10eps",
+    "mult",
+    "addnorm",
+    "raise_",
+    "transform1",
+    "transform2",
+    "epistasisfeatures",
+    "reconstitutefeatures",
+    "parse_feature_name",
     "clear_device_caches",
     "LAUNCHES",
     "reset_launches",

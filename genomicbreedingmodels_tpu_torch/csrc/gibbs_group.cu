@@ -16,8 +16,8 @@
 // the length of the dependent chain per group. Neither FLOPs nor HBM bytes
 // come close to a limit.
 //
-// Design: one launch per block, two roles.
-//  - Builder CTAs (blockIdx ≥ 1) take everything that does not depend on the
+// Design: one launch per block (of every fold chain at once), two roles.
+//  - Builder CTAs (blockIdx ≥ F) take everything that does not depend on the
 //    residual off the critical path, across SMs, as the TPU kernel's first
 //    phase does: one thread per (group, pattern) runs the clamped elimination
 //    (max(d, 1e-30), rsqrt) and the row-wise inverse of the plain version,
@@ -29,7 +29,7 @@
 //    builder CTA then publishes one flag for its groups (st.release.gpu of
 //    this launch's epoch, after a CTA barrier). Builders never wait, so the
 //    launch cannot deadlock whatever order its CTAs are scheduled in.
-//  - The scan CTA (blockIdx 0, 8 warps). Warp 0 runs the groups in sequence:
+//  - The scan CTA (blockIdx f < F, 8 warps). Warp 0 runs the groups in sequence:
 //    lanes i < K form v_i from shared memory (w, the previous group's d
 //    through the linking block, C_gg·b_g) and broadcast v by shuffles; each
 //    lane scores 1 to 8 neighbouring patterns (Z = W̃v, const + ½‖Z‖², W̃
@@ -53,6 +53,25 @@
 //    at K=8) the first `staged` quads are staged and the update reads the
 //    rest from L2, with the same arithmetic. One __syncthreads per group
 //    joins the two sides.
+//
+// Fold axis: one launch updates block `blk` of F independent chains (the
+// row-masked fold chains of cross-validation). Fold f has its own scan CTA,
+// its own builders, its own slice of the workspace (G table slices and one
+// flag per builder) and its own σ²ₑ and π; `val` is shared. The grid is
+// [F scan CTAs | builders chunk-major: chunk c of fold f at F + c·F + f], so
+// the first builder wave covers the first groups of every fold; F = 1 runs
+// the single-chain kernel, the launch as it was. Progress: only a scan CTA
+// ever waits, and only on builders of its own fold, which never wait. So the
+// launch progresses as long as one CTA slot is left to builders whatever
+// order the hardware dispatches in, and the wrapper caps F per launch at half
+// the SM count (one CTA per SM is the worst case of this kernel's shared
+// memory) and splits larger F into several launches. That bound assumes the
+// launch shares the card with no other launch of this kernel and no other
+// tenant's CTAs that hold SMs while it runs: the port issues K3 on one stream
+// (host threads share the current stream), so its launches run one after
+// another. Two fold launches on two streams, or a co-resident tenant, could
+// fill every slot with waiting scans; a scan then traps after
+// WAIT_TRAP_CYCLES and the launch fails instead of hanging.
 //
 // Reused workspace and stale flags: the wrapper passes an epoch that it
 // increments per launch, so a flag left by an earlier launch never reads as
@@ -219,6 +238,39 @@ struct Args {
   int* flags;     // (≥ builder CTAs,) workspace
   int bs, epoch, slice, staged;
 };
+
+// A fold-batched launch: fold 0's Args, the fold count, and the fold strides
+// in floats of the per-fold inputs (rows of length bs, or Cb's (bs, bs) and
+// gum's (G, 2^K), contiguous within a fold). The outputs are (F, bs)
+// contiguous, sig_e2 and pi (F,), the workspace F slices of tables and F
+// runs of builder flags.
+struct FoldArgs {
+  Args a;
+  int folds;
+  long long cb_fs, u_fs, b_fs, s2_fs, eta_fs, gum_fs;
+};
+
+// Fold f's view of the launch: its inputs, outputs and workspace slices.
+template <int K>
+__device__ __forceinline__ Args fold_args(const FoldArgs& fa, int f, int builders) {
+  const Args& a = fa.a;
+  Args o = a;
+  const long long G = a.bs / K;
+  o.Cb += f * fa.cb_fs;
+  o.u += f * fa.u_fs;
+  o.b += f * fa.b_fs;
+  o.s2 += f * fa.s2_fs;
+  o.eta += f * fa.eta_fs;
+  o.gum += f * fa.gum_fs;
+  o.sig_e2 += f;
+  o.pi += f;
+  o.delta += f * static_cast<long long>(a.bs);
+  o.b_new += f * static_cast<long long>(a.bs);
+  o.incl += f * static_cast<long long>(a.bs);
+  o.tables += f * G * a.slice;
+  o.flags += f * builders;
+  return o;
+}
 
 // ---- builders: one thread per (group, pattern) ---------------------------------
 
@@ -571,6 +623,11 @@ __device__ void scan(const Args& a) {
   if (ut >= 0 && ut < 3 * K) put_output<K>(a, obuf, G - 1, ut);
 }
 
+// The single-chain kernel, with the Args of the launch before the fold axis:
+// its code is that launch's. A scan on a fold's copy of its arguments
+// (pointers in registers) ran 7 % slower at F = 1, one kernel holding both
+// scans 27 %, and this kernel with the fold fields in its Args 3.7 % at
+// bs = 600; hence a kernel of its own.
 template <int K>
 __global__ void __launch_bounds__(NT, 1) gibbs_group_kernel(const Args a) {
   if (blockIdx.x == 0)
@@ -579,45 +636,75 @@ __global__ void __launch_bounds__(NT, 1) gibbs_group_kernel(const Args a) {
     build_tables<K>(a, blockIdx.x - 1);
 }
 
+// F folds: F scan CTAs, then the builders chunk-major.
 template <int K>
-int launch(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(NT, 1) gibbs_group_fold_kernel(const FoldArgs fa) {
   constexpr int NPAT = 1 << K;
   constexpr int GPC = NPAT >= NT ? 1 : NT / NPAT;
-  const int G = a.bs / K;
-  const int builders = (G + GPC - 1) / GPC;
-  const size_t smem = sizeof(float) * (8 + static_cast<size_t>(STAGES) * a.slice + 4 * ((a.bs + 3) / 4) + 6 * K) +
-                      sizeof(float4) * static_cast<size_t>(STAGES) * K * a.staged;
-  // The chain launches once per block from the host: raise the kernel's
-  // shared-memory limit only when a launch needs more than this device's
-  // last setting, not on every launch.
-  constexpr int MAX_DEVICES = 64;
-  static int smem_set[MAX_DEVICES];
+  const int builders = (fa.a.bs / K + GPC - 1) / GPC;
+  const int F = fa.folds;
+  const int i = blockIdx.x;
+  if (i < F) {
+    scan<K>(fold_args<K>(fa, i, builders));
+  } else {
+    const int j = i - F;  // chunk-major: chunk j / F of fold j % F
+    build_tables<K>(fold_args<K>(fa, j % F, builders), j / F);
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The chain launches once per block from the host: raise `kernel`'s
+// shared-memory limit only when a launch needs more than this device's last
+// setting (`smem_set`, one record per kernel instance), not on every launch.
+template <typename P>
+int launch_kernel(void (*kernel)(P), const P& params, size_t smem, int grid, int* smem_set,
+                  cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= MAX_DEVICES || static_cast<int>(smem) > smem_set[dev]) {
-    err = cudaFuncSetAttribute(gibbs_group_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < MAX_DEVICES) smem_set[dev] = static_cast<int>(smem);
   }
-  gibbs_group_kernel<K><<<1 + builders, NT, smem, stream>>>(a);
+  kernel<<<grid, NT, smem, stream>>>(params);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch(const FoldArgs& fa, cudaStream_t stream) {
+  constexpr int NPAT = 1 << K;
+  constexpr int GPC = NPAT >= NT ? 1 : NT / NPAT;
+  const Args& a = fa.a;
+  const int G = a.bs / K;
+  const int builders = (G + GPC - 1) / GPC;
+  const size_t smem = sizeof(float) * (8 + static_cast<size_t>(STAGES) * a.slice + 4 * ((a.bs + 3) / 4) + 6 * K) +
+                      sizeof(float4) * static_cast<size_t>(STAGES) * K * a.staged;
+  static int single_set[MAX_DEVICES], fold_set[MAX_DEVICES];
+  if (fa.folds == 1) return launch_kernel(gibbs_group_kernel<K>, a, smem, 1 + builders, single_set, stream);
+  return launch_kernel(gibbs_group_fold_kernel<K>, fa, smem, fa.folds * (1 + builders), fold_set,
+                       stream);
 }
 
 }  // namespace
 
-// All pointers are device memory: Cb (bs, bs) row-major float32; u, b, s2, val,
-// eta, delta, b_new, incl (bs,) float32; gum (bs/K, 2^K) float32; sig_e2 and pi
-// one float each; tables (bs/K, slice) float32 and flags (one per builder CTA)
-// int32, the workspace. `epoch` differs from every flag value an earlier launch left;
-// `slice` (floats per group, a multiple of 4) and `staged` (column quads of Cb
-// staged in shared memory) come from the wrapper's layout.
+// All pointers are device memory, for F = `folds` chains: Cb (F, bs, bs) row-major
+// float32; u, b, s2, eta (F, bs) and gum (F, bs/K, 2^K) float32, each fold at its
+// fold stride (`*_fs`, floats; rows contiguous); val (bs,) shared; sig_e2 and pi
+// (F,); delta, b_new, incl (F, bs) contiguous outputs; tables (F, bs/K, slice)
+// float32 and flags (F, builder CTAs) int32, the workspace. `epoch` differs from
+// every flag value an earlier launch left; `slice` (floats per group, a multiple
+// of 4) and `staged` (column quads of Cb staged in shared memory) come from the
+// wrapper's layout.
 extern "C" int gbm_gibbs_group(const void* Cb, const void* u, const void* b, const void* s2,
                                const void* val, const void* eta, const void* gum,
                                const void* sig_e2, const void* pi, void* delta, void* b_new,
                                void* incl, long long bs, long long K, void* tables, void* flags,
-                               long long epoch, long long slice, long long staged, void* stream) {
+                               long long epoch, long long slice, long long staged, long long folds,
+                               long long cb_fs, long long u_fs, long long b_fs, long long s2_fs,
+                               long long eta_fs, long long gum_fs, void* stream) {
   const Args a{static_cast<const float*>(Cb), static_cast<const float*>(u),
                static_cast<const float*>(b), static_cast<const float*>(s2),
                static_cast<const float*>(val), static_cast<const float*>(eta),
@@ -626,10 +713,12 @@ extern "C" int gbm_gibbs_group(const void* Cb, const void* u, const void* b, con
                static_cast<float*>(b_new), static_cast<float*>(incl),
                static_cast<float*>(tables), static_cast<int*>(flags), static_cast<int>(bs),
                static_cast<int>(epoch), static_cast<int>(slice), static_cast<int>(staged)};
+  const FoldArgs fa{a, static_cast<int>(folds), cb_fs, u_fs, b_fs, s2_fs, eta_fs, gum_fs};
+  if (folds < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
 #define GBM_K3_CASE(k) \
   case k:              \
-    return launch<k>(a, st);
+    return launch<k>(fa, st);
   switch (K) {
     GBM_K3_CASE(1)
     GBM_K3_CASE(2)

@@ -22,12 +22,15 @@ GBLUP folds share one Gram matrix:
    - lasso: pathwise FISTA per fold (ops/linalg.py) with training GCV using
      the active-set size as degrees of freedom.
 
+4. The Bayesian zoo (all eight priors) runs as F row-masked Gibbs chains
+   per (trait, model), one chain with a fold axis
+   (models/bayesian.py:gibbs_cv_folds): on the card the indicator models
+   launch K3 once per block and sweep for all F folds.
+
 Fold-label RNG matches `cvbulk` (uniform with replacement, seeded), so the
 fold composition of the two engines is identical for a given seed.
 
-Not ported yet, each raising NotImplementedError: the Bayesian models'
-fold-batched chains (`gibbs_cv_folds`, ROADMAP queue A step 8) and `mesh=`
-(step 11).
+Not ported yet: `mesh=` (ROADMAP queue A, step 11) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from ..core.structs import CV, Fit, Genomes, Phenomes
 from ..device import as_tensor, resolve_device
 from ..kernels.gram_tri import gram_tri_float
+from ..models.bayesian import gibbs_cv_folds
 from ..ops import linalg
 from ..ops.metrics import metrics
 from ..utils.devcache import SingleSlotCache, host_fingerprint
@@ -56,12 +60,22 @@ __all__ = ["cvbulk_batched"]
 
 BATCHED_MODELS = (
     "ridge", "gblup", "lasso",
-    # The Bayesian zoo: F row-masked Gibbs chains per (trait, model)
-    # (models/bayesian.py:gibbs_cv_folds in the JAX package), not ported yet.
+    # The Bayesian zoo: F row-masked Gibbs chains per (trait, model), one
+    # chain with a fold axis (models/bayesian.py:gibbs_cv_folds).
     "bayesa", "bayesb", "bayesc", "bayesian_ridge", "bayesian_lasso",
     "bayesian_lasso_pi", "bayest", "bayestpi",
 )
-_GIBBS_MODELS = BATCHED_MODELS[3:]
+
+_GIBBS_MODEL_KEYS = {
+    "bayesa": "BayesA",
+    "bayesb": "BayesB",
+    "bayesc": "BayesC",
+    "bayesian_ridge": "BRR",
+    "bayesian_lasso": "BL",
+    "bayesian_lasso_pi": "BLPi",
+    "bayest": "BayesT",
+    "bayestpi": "BayesTPi",
+}
 
 
 def _gram(X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -181,23 +195,20 @@ def cvbulk_batched(
 ) -> Tuple[List[CV], List[str]]:
     """Replicated k-fold CV, batched on `device`.
 
-    `models` ⊆ ("ridge", "gblup", "lasso") here; the Bayesian names of the
-    JAX package's BATCHED_MODELS and `mesh=` raise NotImplementedError.
-    Returns the same (cvs, notes) surface as `cvbulk`; each CV's fit carries
-    the fold's chosen λ (or variance ratio) in `extras` and, with
-    `store_effects`, marker effects in `b_hat`, so `predict` works.
-    `mcmc_n_iter`/`mcmc_n_burnin` are the Bayesian models' and unused here.
+    `models` ⊆ BATCHED_MODELS: ridge, gblup, lasso and the eight Bayesian
+    models, which run as row-masked Gibbs chains with a fold axis, one chain
+    per (trait, model) covering every (replication, fold)
+    (`mcmc_n_iter`/`mcmc_n_burnin` override the config chain length).
+    `mesh=` raises NotImplementedError. Returns the same (cvs, notes)
+    surface as `cvbulk`; each CV's fit carries the fold's chosen λ (or
+    variance ratio) in `extras` (`engine` "batched-gibbs" for the chains)
+    and, with `store_effects`, marker effects in `b_hat`, so `predict` works.
     """
     for m in models:
         if m not in BATCHED_MODELS:
             raise ValueError(
                 f"{m!r} is not a batched CV model; choose from {BATCHED_MODELS} "
                 "(use cvbulk for the full model zoo)"
-            )
-        if m in _GIBBS_MODELS:
-            raise NotImplementedError(
-                f"cvbulk_batched({m!r}): the fold-batched Gibbs chains (gibbs_cv_folds) are not "
-                "ported yet (ROADMAP queue A, step 8); cvbulk runs the model fold by fold"
             )
     if mesh is not None:
         raise NotImplementedError(
@@ -260,7 +271,8 @@ def cvbulk_batched(
             _run_models_on_masks(
                 genomes, phi, str(trait), np.stack(w_list), np.stack(v_list), tags, models,
                 X=X, K=K, Z=Z, lambdas=lambdas, tr_scale=tr_scale,
-                store_effects=store_effects, timer=timer,
+                store_effects=store_effects, seed=seed, mcmc_n_iter=mcmc_n_iter,
+                mcmc_n_burnin=mcmc_n_burnin, timer=timer,
             )
         )
     return cvs, notes
@@ -268,7 +280,7 @@ def cvbulk_batched(
 
 def _run_models_on_masks(
     genomes, phi, trait, W, V, tags, models, *, X, K, Z, lambdas, tr_scale, store_effects,
-    timer=None,
+    seed=42, mcmc_n_iter=None, mcmc_n_burnin=None, timer=None,
 ) -> List[CV]:
     """Run every model over one batch of (train, val) mask pairs.
 
@@ -285,7 +297,22 @@ def _run_models_on_masks(
     timer = timer if timer is not None else StageTimer()
     x_mean = genomes.allele_frequencies.mean(axis=0) if store_effects else None
     for model in models:
-        if model in ("ridge", "gblup"):
+        if model in _GIBBS_MODEL_KEYS:
+            with timer.stage(f"{model}_solve"):
+                mus, betas = gibbs_cv_folds(
+                    X, y, W, model=_GIBBS_MODEL_KEYS[model], n_iter=mcmc_n_iter,
+                    n_burnin=mcmc_n_burnin, seed=seed, device=dev,
+                )
+            with timer.stage(f"{model}_emit"):
+                # (n, F): column f is fold f's prediction for every entry
+                preds_g = mus[None, :] + np.asarray(genomes.allele_frequencies,
+                                                    dtype=np.float64) @ betas.T
+                for f, (rep, fold) in enumerate(tags):
+                    cvs.append(
+                        _emit_gibbs(genomes, phi, W[f], V[f], preds_g[:, f], float(mus[f]),
+                                    betas[f], model, trait, rep, fold, store_effects)
+                    )
+        elif model in ("ridge", "gblup"):
             # ridge: λ as given; gblup: variance ratios on the Gram's trace scale
             grid_np = lambdas if model == "ridge" else tr_scale * np.logspace(-3.0, 3.0, 13)
             grid = torch.tensor(grid_np, dtype=torch.float32, device=dev)
@@ -380,6 +407,13 @@ def _emit_dual(genomes, phi, w, v, pred, beta, x_mean, model, trait, rep, fold, 
         b_hat = np.concatenate([[mean_y - float(x_mean @ beta)], beta])
     extras = {"lambda": lam, "engine": "batched" if model == "ridge" else "batched-reml"}
     return _emit_fit_cv(genomes, phi, w, v, pred, b_hat, model, trait, rep, fold, extras)
+
+
+def _emit_gibbs(genomes, phi, w, v, pred, mu, beta, model, trait, rep, fold, store_effects):
+    """Fit + CV of one fold's Gibbs posterior-mean solution (mu, beta)."""
+    b_hat = np.concatenate([[mu], beta]) if store_effects else None
+    return _emit_fit_cv(genomes, phi, w, v, pred, b_hat, model, trait, rep, fold,
+                        {"engine": "batched-gibbs"})
 
 
 def _emit_lasso(genomes, phi, w, v, pred, beta, b0, trait, rep, fold, lam, store_effects):

@@ -56,13 +56,15 @@ _ENTRY_POINTS = {
     "gbm_gram_tri_f32": _GRAM,
     "gbm_gram_tri_bf16": _GRAM,
     # (Cb, u, b, s2, val, eta, gum, sig_e2, pi, delta, b_new, incl, bs, K,
-    #  tables, flags, epoch, slice_floats, staged_quads, stream)
-    "gbm_gibbs_group": (_PTR,) * 12 + (_SIZE, _SIZE, _PTR, _PTR, _SIZE, _SIZE, _SIZE, _PTR),
+    #  tables, flags, epoch, slice_floats, staged_quads, folds,
+    #  the six fold strides, stream)
+    "gbm_gibbs_group": (_PTR,) * 12 + (_SIZE, _SIZE, _PTR, _PTR) + (_SIZE,) * 10 + (_PTR,),
 }
 
 # Kernel launches by the wrappers (CUDA tensors only; plain versions never count).
 LAUNCHES = {"gram_tri_int8": 0, "gram_tri_float": 0, "gibbs_group": 0}
-# The (dtype, n, p) operand shapes each kernel was launched at, where its wrapper names them.
+# The shapes each kernel was launched at: (dtype, n, p) operands of K1/K2,
+# (folds, bs, K) of K3.
 LAUNCH_SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 # Guards LAUNCHES, and K3's per-stream workspaces with their epochs
 # (kernels/gibbs_group.py), which must change together with the count.
@@ -75,7 +77,7 @@ _lib: ctypes.CDLL | None = None
 
 def count_launch(name: str, shape: tuple | None = None) -> None:
     """One more launch of kernel `name` (a read-modify-write, hence the
-    lock), at operand `shape` = (dtype, n, p) where the wrapper gives it."""
+    lock), at `shape` where the wrapper gives it (see LAUNCH_SHAPES)."""
     with LAUNCH_LOCK:
         LAUNCHES[name] += 1
         if shape is not None:

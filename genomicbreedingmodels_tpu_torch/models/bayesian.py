@@ -26,17 +26,33 @@ update is one of five plain functions, chosen per model and
 All five target the same posterior. `_sweep` then draws the intercept, the
 ordinal liabilities (probit), σ²ₑ, the marker variances and π, and
 accumulates the posterior after burn-in. σ²ₑ, π and the other scalars stay
-0-d tensors on the device and the traces are read back once, at the end: no
-block or sweep waits on the host. Random numbers come from an explicit
-torch.Generator (Gamma and χ² variates through `torch._standard_gamma`), so
+tensors on the device and the traces are read back once, at the end: no
+block or sweep waits on the host. Random numbers come from explicit
+torch.Generators (Gamma and χ² variates through `torch._standard_gamma`), so
 the chain differs draw by draw from the JAX chain (threefry) and is held to
 it by posterior statistics.
 
+The chain carries a leading fold axis: F independent chains run as one, each
+with its own generator, state and row mask (`gibbs_cv_folds`, the
+fold-batched cross-validation of the Bayesian zoo). Every block step is one
+batched product for all F folds, K3 updates the block of every fold in one
+launch, and each fold draws its noise from its own generator in a fixed
+order (a sweep's normals and Gumbel or uniform draws for every block first,
+then the intercept, σ²ₑ, the marker variances and π), so fold f of a batch
+is the chain fold f runs alone. `gibbs_regression` runs F = 1 without a
+mask. A row-masked fold holds its own centered copy of the panel,
+(X − μ_f)⊙m_f with μ_f the training rows' column means, as the JAX chain
+does under vmap: its held-out rows are zero, so they contribute nothing to
+u = X_bᵀr, the block Grams or the residual, and the entry count n becomes
+n_eff = Σm_f in the intercept draw, the residual χ² and the inits. At the
+JAX bench's cv cell (2048 × 32768, 15 folds) the copies take 4.1 GB and the
+block Grams 0.5 GB.
+
 Priors follow BGLR's gaussian defaults (R2=0.5, df=5, scaled-inverse-χ²
 residual and marker variances, Beta-updated inclusion probability for Bayes
-B/C). Not ported yet: the marker-sharded chain (`axis_name`, `seq_rounds`;
-ROADMAP queue A, step 11) and the fold-batched chains of `gibbs_cv_folds`
-(`row_mask`, `vary_axes`, `batch_hint`; step 8).
+B/C). Not ported yet: the marker-sharded chain (`axis_name`, `seq_rounds`)
+and the fold axis over a device mesh (`gibbs_cv_folds(mesh=)`), both
+ROADMAP queue A, step 11.
 """
 
 from __future__ import annotations
@@ -71,6 +87,7 @@ _PANEL_CACHE = SingleSlotCache()
 
 __all__ = [
     "gibbs_regression",
+    "gibbs_cv_folds",
     "bglr",
     "bayesian",
     "bayesa",
@@ -89,12 +106,13 @@ BAYESIAN_MODELS = ("BayesA", "BayesB", "BayesC", "BRR", "BL", "BLPi", "BayesT", 
 _MODEL_IDS = {m: i for i, m in enumerate(BAYESIAN_MODELS)}
 _INDICATOR = ("BayesB", "BayesC", "BLPi", "BayesTPi")
 _GROUP_TABLE_FLOATS = int(3.6e8)  # hoist gate of the grouped pattern tables
-_JOINT_TABLE_FLOATS = int(1.0e8)  # hoist gate of the joint-draw L⁻¹ tables
-
-
-def _chi2(gen, df, shape=(), device=None):
-    """χ²(df) = 2·Gamma(df/2) from `gen`; df a float or a 0-d tensor."""
-    return 2.0 * _gamma(gen, df / 2.0, shape, device)
+# Hoist gates of the joint-draw L⁻¹ tables: the reference's 1e8 floats for
+# one chain, 1 GB for fold chains. At the cv cell's 15 folds (15·128·256²
+# floats) the hoisted BRR sweep took 0.033–0.043 s against 0.124–0.153 s in
+# the step on an H100 (scripts/torch_fold_chain_paths.py); a single chain
+# between the two gates was not measured, so it keeps the reference's.
+_JOINT_TABLE_FLOATS = int(1e8)
+_FOLD_JOINT_TABLE_FLOATS = int(2.5e8)
 
 
 def _gamma(gen, alpha, shape=(), device=None):
@@ -113,15 +131,52 @@ def _gumbel(gen, shape, device):
     return u.clamp_(1e-12, 1.0 - 1e-7).log_().neg_().log_().neg_()
 
 
+# Per-fold draws: fold f's numbers come from gens[f] alone, stacked on a
+# leading fold axis (a float parameter is shared, an (F,) tensor is per fold).
+
+
+def _fold_randn(gens, shape, dev):
+    return torch.stack([torch.randn(shape, generator=g, device=dev) for g in gens])
+
+
+def _fold_rand(gens, shape, dev):
+    return torch.stack([torch.rand(shape, generator=g, device=dev) for g in gens])
+
+
+def _fold_gamma(gens, alpha, shape, dev):
+    per = isinstance(alpha, torch.Tensor)
+    return torch.stack([_gamma(g, alpha[f] if per else alpha, shape, dev) for f, g in enumerate(gens)])
+
+
+def _fold_chi2(gens, df, shape, dev):
+    """χ²(df) = 2·Gamma(df/2) per fold."""
+    return 2.0 * _fold_gamma(gens, df / 2.0, shape, dev)
+
+
+def _inverse_gaussian(mu, lam, v, u):
+    """IG(mu, lam) from v = ν², ν ~ N(0, 1), and u ~ U(0, 1) (Michael, Schucany
+    and Haas 1976): the smaller root x = mu + mu²v/(2lam) − (mu/2lam)·√(4·mu·lam·v
+    + mu²v²), then mu²/x unless u ≤ mu/(mu + x). The root is taken in the form
+    4·mu²·lam·v / (mu·v + √(mu²v² + 4·mu·lam·v))², a sum of positive terms: the
+    textbook form (the JAX package's, bayesian.py:776-780) cancels in float32
+    once mu·v ≫ lam, giving x ≤ 0 for half the draws at mu/lam = 2e4, and
+    through the clamps τ² at its cap."""
+    muv = mu * v
+    x = 4.0 * mu * muv * lam / (muv + torch.sqrt(muv * muv + 4.0 * lam * muv)) ** 2
+    x = torch.where(muv > 0, x, mu)  # v = 0: the root is mu (0/0 above)
+    return torch.where(u <= mu / (mu + x), x, mu * mu / torch.clamp(x, min=1e-20))
+
+
 @dataclass
 class _Panel:
-    """What the chain derives once from the design: the centered panel, its
-    column means, the per-marker sums of squares and the block Grams."""
+    """What the chain derives once from the design, per fold: the centered
+    panel, its column means, the per-marker sums of squares and the block
+    Grams (block-major, so one block of every fold is one contiguous slab)."""
 
-    X: torch.Tensor  # (n, p_pad) float32, centered
-    mu_cols: torch.Tensor  # (p_pad,)
-    x2: torch.Tensor  # (p_pad,)
-    C: torch.Tensor  # (n_blocks, bs, bs)
+    X: torch.Tensor  # (F, n, p_pad) float32, centered (and row-masked)
+    mu_cols: torch.Tensor  # (F, p_pad)
+    x2: torch.Tensor  # (F, p_pad)
+    C: torch.Tensor  # (n_blocks, F, bs, bs)
 
 
 def _center_(Xp: torch.Tensor) -> torch.Tensor:
@@ -134,23 +189,24 @@ def _center_(Xp: torch.Tensor) -> torch.Tensor:
 
 
 def _setup(Xc: torch.Tensor, mu_cols: torch.Tensor, block_size: int, n_blocks: int) -> _Panel:
-    """Block Grams of the centered panel: one plain product per block, into
-    one (n_blocks, bs, bs) buffer (no block-major copy of the panel). x2 is
-    the Grams' diagonal."""
+    """Block Grams of the centered panels: one batched product per block for
+    all folds, into one (n_blocks, F, bs, bs) buffer (no block-major copy of
+    the panel). x2 is the Grams' diagonal."""
     bs = block_size
-    C = torch.empty((n_blocks, bs, bs), dtype=torch.float32, device=Xc.device)
+    F = Xc.shape[0]
+    C = torch.empty((n_blocks, F, bs, bs), dtype=torch.float32, device=Xc.device)
     for blk in range(n_blocks):
-        Xb = Xc[:, blk * bs : (blk + 1) * bs]
-        torch.matmul(Xb.T, Xb, out=C[blk])
-    x2 = C.diagonal(dim1=1, dim2=2).reshape(-1).clone()
+        Xb = Xc[:, :, blk * bs : (blk + 1) * bs]
+        torch.bmm(Xb.transpose(1, 2), Xb, out=C[blk])
+    x2 = C.diagonal(dim1=2, dim2=3).transpose(0, 1).reshape(F, -1).clone()
     return _Panel(X=Xc, mu_cols=mu_cols, x2=x2, C=C)
 
 
-# -- within-block updates: each returns (delta, b_new, incl), all (bs,) ------
+# -- within-block updates: each returns (delta, b_new, incl), all (F, bs) -------
 
 
 def _block_kernel(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi_in, K):
-    """(a) K3: the whole within-block group scan as one kernel launch."""
+    """(a) K3: the whole within-block group scan of every fold as one kernel launch."""
     return grouped_block_update(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi_in, K=K)
 
 
@@ -174,22 +230,24 @@ def _block_scalar(Cb, u, b_blk, s2_blk, val_blk, x2_blk, normals, uniforms, sig_
     """(d) One marker at a time, exact sequential Gibbs. Markers already
     updated in this block enter through the rows of Cb (length-bs axpys),
     not through the length-n residual."""
-    prec = x2_blk / sig_e2 + 1.0 / s2_blk
-    coef = 1.0 / (sig_e2 * prec)  # mean = x_jᵀ(residual without j)/σ²ₑ/prec
+    sig = sig_e2[:, None]
+    prec = x2_blk / sig + 1.0 / s2_blk
+    coef = 1.0 / (sig * prec)  # mean = x_jᵀ(residual without j)/σ²ₑ/prec
     spread = torch.sqrt(1.0 / prec) * normals
-    # wn[j] = u_j − cdelta_j + x2_j·b_j: marker j's own effect is untouched
+    # wn[:, j] = u_j − cdelta_j + x2_j·b_j: marker j's own effect is untouched
     # until its step, so x2·b enters once and the steps subtract C rows.
     wn = u + x2_blk * b_blk
     if has_indicator:
         # Marginal (effect-integrated) inclusion odds; u < sigmoid(x) is
         # logit(u) < x, and invalid markers never enter.
-        lo0 = (torch.log(pi_in / (1.0 - pi_in)) - 0.5 * torch.log(s2_blk * prec)).unbind()
-        hp = (0.5 * prec).unbind()
-        thr = torch.where(val_blk > 0, torch.logit(uniforms), float("inf")).unbind()
+        lo0 = (torch.log(pi_in / (1.0 - pi_in))[:, None] - 0.5 * torch.log(s2_blk * prec)).unbind(1)
+        hp = (0.5 * prec).unbind(1)
+        thr = torch.where(val_blk > 0, torch.logit(uniforms), float("inf")).unbind(1)
     val = val_blk.unbind()
-    coef, spread, b_old, rows, wn_j = coef.unbind(), spread.unbind(), b_blk.unbind(), Cb.unbind(), wn.unbind()
+    coef, spread, b_old = coef.unbind(1), spread.unbind(1), b_blk.unbind(1)
+    rows, wn_j = Cb.unbind(1), wn.unbind(1)
     new, picks = [], []
-    for j in range(Cb.shape[0]):
+    for j in range(Cb.shape[1]):
         mean = wn_j[j] * coef[j]
         b_new = mean + spread[j]
         if has_indicator:
@@ -198,21 +256,22 @@ def _block_scalar(Cb, u, b_blk, s2_blk, val_blk, x2_blk, normals, uniforms, sig_
             picks.append(inc)
         else:
             b_new = b_new * val[j]
-        wn.addcmul_(rows[j], b_old[j] - b_new)
+        wn.addcmul_(rows[j], (b_old[j] - b_new)[:, None])
         new.append(b_new)
-    b_new = torch.stack(new)
-    incl = torch.stack(picks).to(torch.float32) if has_indicator else torch.ones_like(b_new)
+    b_new = torch.stack(new, 1)
+    incl = torch.stack(picks, 1).to(torch.float32) if has_indicator else torch.ones_like(b_new)
     return b_new - b_blk, b_new, incl
 
 
 def _joint_tables(C, s2, sig_e2, valid):
     """Batched L⁻¹ of every block's joint-draw precision C_b/σ²ₑ + diag(1/s²),
-    (n_blocks, bs, bs). Padded markers carry zero Gram rows and a pinned unit
-    diagonal, so their L⁻¹ rows/cols are e_k and the draw is finite there."""
-    nb, bs, _ = C.shape
-    dinv = torch.where(valid > 0, 1.0 / torch.clamp(s2, min=1e-12), 1.0).view(nb, bs)
-    L = torch.linalg.cholesky_ex(C / sig_e2 + torch.diag_embed(dinv))[0]
-    eye = torch.eye(bs, dtype=C.dtype, device=C.device).expand(nb, bs, bs)
+    (n_blocks, F, bs, bs). Padded markers carry zero Gram rows and a pinned
+    unit diagonal, so their L⁻¹ rows/cols are e_k and the draw is finite there."""
+    nb, F, bs, _ = C.shape
+    s2b = s2.view(F, nb, bs).transpose(0, 1)
+    dinv = torch.where(valid.view(nb, 1, bs) > 0, 1.0 / torch.clamp(s2b, min=1e-12), 1.0)
+    L = torch.linalg.cholesky_ex(C / sig_e2[:, None, None] + torch.diag_embed(dinv))[0]
+    eye = torch.eye(bs, dtype=C.dtype, device=C.device).expand(nb, F, bs, bs)
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
@@ -220,14 +279,16 @@ def _block_joint(Linv_b, Cb, u, b_blk, s2_blk, val_blk, normals, sig_e2):
     """(e) The block conditional of a continuous prior is jointly Gaussian,
     N(P⁻¹rhs, P⁻¹) with P = C_b/σ²ₑ + D⁻¹ and rhs = (u + C_b·b_b)/σ²ₑ: one
     exact block draw. Hoisted (Linv_b given): mean + L⁻ᵀη as two GEMVs."""
-    rhs = (u + Cb @ b_blk) / sig_e2
+    rhs = (u + (Cb @ b_blk[..., None])[..., 0]) / sig_e2[:, None]
     if Linv_b is not None:
-        b_new = (Linv_b @ rhs + normals) @ Linv_b  # (w + η) @ L⁻¹ = L⁻ᵀ(w + η)
+        # (w + η) @ L⁻¹ = L⁻ᵀ(w + η)
+        b_new = (((Linv_b @ rhs[..., None])[..., 0] + normals)[:, None, :] @ Linv_b)[:, 0]
     else:
         dinv = torch.where(val_blk > 0, 1.0 / torch.clamp(s2_blk, min=1e-12), 1.0)
-        L = torch.linalg.cholesky_ex(Cb / sig_e2 + torch.diag(dinv))[0]
-        mean = torch.cholesky_solve(rhs[:, None], L)[:, 0]
-        b_new = mean + torch.linalg.solve_triangular(L.T, normals[:, None], upper=True)[:, 0]
+        L = torch.linalg.cholesky_ex(Cb / sig_e2[:, None, None] + torch.diag_embed(dinv))[0]
+        mean = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+        b_new = mean + torch.linalg.solve_triangular(L.transpose(1, 2), normals[..., None],
+                                                     upper=True)[..., 0]
     b_new = torch.where(val_blk > 0, b_new, 0.0)
     return b_new - b_blk, b_new, torch.ones_like(b_new)
 
@@ -260,10 +321,13 @@ def _hyper(model: str, var_y: float, ms_x: float, p: int, r2: float,
     return hyper
 
 
-def _initial_state(y, hyper, model_id, p_pad, response_id, n_cats, pinned, gen):
-    """The chain's 13-component state at sweep 0 (component 7 is the
-    generator's state, a uint8 tensor on the host)."""
+def _initial_state(y, hyper, model_id, F, p_pad, response_id, n_cats, pinned, gens, row_mask=None):
+    """The F chains' 13-component state at sweep 0 (component 7 is the
+    generators' states, an (F, ·) uint8 tensor on the host). A row-masked
+    fold starts from its training rows alone (JAX bayesian.py:857-862):
+    mu0 = Σ(y·m)/n_eff and r0 = (y − mu0)·m, so held-out residuals are zero."""
     dev = y.device
+    n = y.shape[0]
 
     def full(shape, v):
         return torch.full(shape, float(v), dtype=torch.float32, device=dev)
@@ -272,31 +336,37 @@ def _initial_state(y, hyper, model_id, p_pad, response_id, n_cats, pinned, gen):
     if response_id == 1:
         # Latent liabilities start at the standardized category codes;
         # interior thresholds equally spaced.
-        z0 = (y - y.mean()) / torch.clamp(y.std(correction=0), min=1e-6)
-        gam0 = torch.linspace(0.0, 1.0, n_gam, dtype=torch.float32, device=dev)
-        mu0, sig0 = full((), 0.0), full((), 1.0)
-        r0 = z0 - mu0
+        z0 = ((y - y.mean()) / torch.clamp(y.std(correction=0), min=1e-6)).expand(F, n).clone()
+        gam0 = torch.linspace(0.0, 1.0, n_gam, dtype=torch.float32, device=dev).expand(F, n_gam).clone()
+        mu0, sig0 = full((F,), 0.0), full((F,), 1.0)
+        r0 = z0 - mu0[:, None]
+    elif row_mask is not None:
+        z0, gam0 = y.expand(F, n).clone(), full((F, n_gam), 0.0)
+        n_eff = row_mask.sum(1)
+        mu0 = (y * row_mask).sum(1) / n_eff
+        r0 = (y - mu0[:, None]) * row_mask
+        sig0 = (r0 * r0).sum(1) / n_eff * 0.5
     else:
-        z0, gam0 = y.clone(), full((n_gam,), 0.0)
-        mu0 = y.mean()
-        r0 = y - mu0
-        sig0 = y.var(correction=0) * 0.5
+        z0, gam0 = y.expand(F, n).clone(), full((F, n_gam), 0.0)
+        mu0 = y.mean().expand(F).clone()
+        r0 = (y - y.mean()).expand(F, n).clone()
+        sig0 = (y.var(correction=0) * 0.5).expand(F).clone()
     if pinned:
-        sig0 = full((), hyper["fix_e"])
+        sig0 = full((F,), hyper["fix_e"])
     s2_init = hyper["fix_b"] if pinned else hyper["S_b0"] / max(hyper["df_b"] - 2.0, 0.5)
     is_bl = model_id in (_MODEL_IDS["BL"], _MODEL_IDS["BLPi"])
     return (
-        full((p_pad,), 0.0),  # b
+        full((F, p_pad), 0.0),  # b
         r0,  # r
-        full((p_pad,), s2_init),  # s2
+        full((F, p_pad), s2_init),  # s2
         sig0,  # sig_e2
         mu0,  # mu
-        full((), hyper["pi_in"]),  # pi
-        full((), hyper["lam2_0"] if is_bl else hyper["S_b0"]),  # S_scale / λ²
-        gen.get_state(),
-        full((p_pad,), 0.0),  # acc_b
-        full((), 0.0),  # acc_mu
-        full((), 0.0),  # acc_n
+        full((F,), hyper["pi_in"]),  # pi
+        full((F,), hyper["lam2_0"] if is_bl else hyper["S_b0"]),  # S_scale / λ²
+        torch.stack([g.get_state() for g in gens]),
+        full((F, p_pad), 0.0),  # acc_b
+        full((F,), 0.0),  # acc_mu
+        full((F,), 0.0),  # acc_n
         z0,
         gam0,
     )
@@ -309,7 +379,7 @@ def _gibbs_chain(
     panel: _Panel,
     y: torch.Tensor,  # (n,) float32 on the panel's device
     valid: torch.Tensor,  # (p_pad,) 1.0 for real markers
-    gen: torch.Generator,
+    gens: Sequence[torch.Generator],  # one per fold
     hyper: dict,
     model_id: int,
     n_iter: int,
@@ -324,18 +394,29 @@ def _gibbs_chain(
     pinned: bool = False,
     group_size: int = 0,
     pallas_groups: bool = False,
+    row_mask: Optional[torch.Tensor] = None,  # (F, n) {0, 1} training rows
 ):
     """Run `n_iter` sweeps (global indices `iters`, for burn-in accounting)
-    from `state_in` or the initial state; returns (mu, b_mean, traces[,
-    state]) with traces = (σ²ₑ per sweep, the first 8 effects per sweep).
+    of the F = len(gens) chains from `state_in` or the initial state; returns
+    (mu (F,), b_mean (F, p_pad), traces[, state]) with traces = (σ²ₑ per
+    sweep (T, F), the first 8 effects per sweep (T, F, 8), the centered
+    intercept per sweep (T, F)).
 
     One long run and N chained segments give the bit-identical chain: the
-    generator's state rides in the state tuple."""
+    generators' states ride in the state tuple."""
     X, C = panel.X, panel.C
+    F, n, p_pad = X.shape
     dev = X.device
-    n, p_pad = X.shape
     bs = block_size
     model = BAYESIAN_MODELS[model_id]
+    masked = row_mask is not None
+    if masked and response_id == 1:
+        raise ValueError("row-masked chains support gaussian responses only")
+    # Row-masked folds count only their training rows (JAX bayesian.py:177-188).
+    n_eff = row_mask.sum(1) if masked else torch.full((F,), float(n), device=dev)
+    # gibbs_regression's one chain: plain GEMVs and K3's single-chain launch
+    # (the fold path's batched products and fold launch cost it host time).
+    single = F == 1 and not masked
     has_indicator = model in _INDICATOR
     per_marker_var = model in ("BayesA", "BayesB", "BL", "BLPi", "BayesT", "BayesTPi")
     is_bl = model in ("BL", "BLPi")
@@ -344,28 +425,47 @@ def _gibbs_chain(
     fixed_scale = model in ("BayesT", "BayesTPi")
     p_real = float(valid.sum())  # once per segment
     grouped = group_size > 1 and (has_indicator or model == "BL")
-    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups)
+    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups, F)
     if grouped:
         K = group_size
         gpb = bs // K
         n_pat = (1 << K) if has_indicator else 1
         patterns = pattern_bits(K, dev, indicator=has_indicator)
-        Cgg = C.view(n_blocks, gpb, K, gpb, K).diagonal(dim1=1, dim2=3).permute(0, 3, 1, 2)
+        Cgg = C.view(n_blocks, F, gpb, K, gpb, K).diagonal(dim1=2, dim2=4).permute(0, 1, 4, 2, 3)
     is_ordinal = response_id == 1
     if is_ordinal:
         y_code = y.to(torch.long)
         big = 1e10
-    fix_e = torch.full((), hyper["fix_e"], device=dev) if pinned else None
 
-    def block_update(blk, b, r, s2, sig_e2, pi_in, tables):
+    def sweep_noise():
+        """This sweep's within-block noise of every fold, block-major:
+        normals (n_blocks, F, bs), and Gumbel draws (n_blocks, F, G, 2^K)
+        or uniforms (n_blocks, F, bs) for the indicator models."""
+        normals = torch.stack([torch.randn(p_pad, generator=g, device=dev).view(n_blocks, bs)
+                               for g in gens], 1)
+        gum = uniforms = None
+        if grouped and has_indicator:
+            gum = torch.stack([_gumbel(g, (n_blocks, gpb, n_pat), dev) for g in gens], 1)
+        elif has_indicator:
+            uniforms = torch.stack([torch.rand(p_pad, generator=g, device=dev).view(n_blocks, bs)
+                                    for g in gens], 1)
+        return normals, gum, uniforms
+
+    def block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise):
         sl = slice(blk * bs, (blk + 1) * bs)
-        Xblk = X[:, sl]
-        u = torch.mv(Xblk.T, r)
-        b_blk, s2_blk, val_blk, Cb = b[sl], s2[sl], valid[sl], C[blk]
-        normals = torch.randn(bs, generator=gen, device=dev)
+        Xb = X[:, :, sl]
+        if single:
+            u = torch.mv(Xb[0].T, r[0])[None]
+        else:
+            u = torch.bmm(r[:, None, :], Xb)[:, 0]  # (F, bs): one batched GEMV
+        b_blk, s2_blk, val_blk, Cb = b[:, sl], s2[:, sl], valid[sl], C[blk]
+        normals = noise[0][blk]
         if grouped:
-            gum = _gumbel(gen, (gpb, n_pat), dev) if has_indicator else None
-            if pallas_groups:
+            gum = noise[1][blk] if has_indicator else None
+            if pallas_groups and single:
+                out = tuple(o[None] for o in _block_kernel(
+                    Cb[0], u[0], b_blk[0], s2_blk[0], val_blk, normals[0], gum[0], sig_e2, pi_in, K))
+            elif pallas_groups:
                 out = _block_kernel(Cb, u, b_blk, s2_blk, val_blk, normals, gum, sig_e2, pi_in, K)
             elif tables is not None:
                 out = _block_grouped_hoisted(
@@ -380,34 +480,42 @@ def _gibbs_chain(
             # scalar scan too when not grouped: its σ²ₑ-proportional shrinkage
             # turns the full-block joint draw's null-space moves into a
             # positive feedback loop when p > n.
-            uniforms = torch.rand(bs, generator=gen, device=dev) if has_indicator else None
-            out = _block_scalar(Cb, u, b_blk, s2_blk, val_blk, panel.x2[sl], normals, uniforms,
+            uniforms = noise[2][blk] if has_indicator else None
+            out = _block_scalar(Cb, u, b_blk, s2_blk, val_blk, panel.x2[:, sl], normals, uniforms,
                                 sig_e2, pi_in, has_indicator)
         else:
             out = _block_joint(None if tables is None else tables[blk], Cb, u, b_blk, s2_blk,
                                val_blk, normals, sig_e2)
         delta, b_new, incl = out
-        r.addmv_(Xblk, delta, alpha=-1.0)
-        b[sl] = b_new
+        if single:
+            r[0].addmv_(Xb[0], delta[0], alpha=-1.0)
+        else:
+            # r −= X_b·δ as a row vector times X_bᵀ: on the host this product
+            # rounds each fold alike whatever F is (X_b·δ as a column does not).
+            r[:, None, :].baddbmm_(delta[:, None, :], Xb.transpose(1, 2), alpha=-1.0)
+        b[:, sl] = b_new
         return incl
 
     def sweep(state, it):
         b, r, s2, sig_e2, mu, pi_in, S_scale, _, acc_b, acc_mu, acc_n, z, gam = state
+        noise = sweep_noise()
         # 1) Marker effects, blocked-exact Gibbs.
         if hoist_groups:
-            tables = group_tables(Cgg, s2.view(n_blocks, gpb, K), valid.view(n_blocks, gpb, K),
-                                  patterns, sig_e2, pi_in)
+            tables = group_tables(Cgg, s2.view(F, n_blocks, gpb, K).transpose(0, 1),
+                                  valid.view(n_blocks, 1, gpb, K), patterns, sig_e2[:, None],
+                                  pi_in[:, None])
         elif hoist_joint:
             tables = _joint_tables(C, s2, sig_e2, valid)
         else:
             tables = None
-        incl = torch.cat([block_update(blk, b, r, s2, sig_e2, pi_in, tables)
-                          for blk in range(n_blocks)]) * valid
-        active = incl if has_indicator else valid
+        incl = torch.cat([block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise)
+                          for blk in range(n_blocks)], 1) * valid
+        active = incl if has_indicator else valid.expand(F, p_pad)
 
-        # 2) Intercept.
-        mu_new = mu + r.mean() + torch.sqrt(sig_e2 / n) * torch.randn((), generator=gen, device=dev)
-        r = r - (mu_new - mu)
+        # 2) Intercept (JAX bayesian.py:718-720: n_eff and the mask when masked).
+        mu_new = mu + r.sum(1) / n_eff + torch.sqrt(sig_e2 / n_eff) * _fold_randn(gens, (), dev)
+        shift = (mu_new - mu)[:, None]
+        r = r - (shift * row_mask if masked else shift)
         mu = mu_new
 
         if is_ordinal:
@@ -415,88 +523,83 @@ def _gibbs_chain(
             # 0..C-1; the latent liability z replaces the response and the
             # residual variance is fixed at 1 (probit identification).
             eta = z - r
-            lo_k = torch.stack([torch.where(y == k, z, -big).max() for k in range(n_cats - 1)])
-            hi_k = torch.stack([torch.where(y == k + 1, z, big).min() for k in range(n_cats - 1)])
-            u_g = torch.rand(n_cats - 1, generator=gen, device=dev)
+            lo_k = torch.stack([torch.where(y == k, z, -big).amax(1) for k in range(n_cats - 1)], 1)
+            hi_k = torch.stack([torch.where(y == k + 1, z, big).amin(1) for k in range(n_cats - 1)], 1)
+            u_g = _fold_rand(gens, (n_cats - 1,), dev)
             gam = lo_k + u_g * (hi_k - lo_k)
-            gam[0] = 0.0  # identifiability
-            edge = torch.full((1,), big, device=dev)
-            full_gam = torch.cat([-edge, gam, edge])
-            lo, hi = full_gam[y_code], full_gam[y_code + 1]
+            gam[:, 0] = 0.0  # identifiability
+            edge = torch.full((F, 1), big, device=dev)
+            full_gam = torch.cat([-edge, gam, edge], 1)
+            lo, hi = full_gam[:, y_code], full_gam[:, y_code + 1]
             # Truncated-normal draw by inverse CDF.
             a = torch.special.ndtr(lo - eta)
             bcdf = torch.special.ndtr(hi - eta)
-            u_z = torch.rand(n, generator=gen, device=dev).clamp_(1e-6, 1.0 - 1e-6)
+            u_z = _fold_rand(gens, (n,), dev).clamp_(1e-6, 1.0 - 1e-6)
             q = torch.clamp(a + u_z * (bcdf - a), 1e-6, 1.0 - 1e-6)
             z = eta + torch.special.ndtri(q)
             r = z - eta
-            sig_e2 = torch.ones((), device=dev)
+            sig_e2 = torch.ones(F, device=dev)
         else:
-            # 3) Residual variance: σ²ₑ = (SSE + Sₑ) / χ²(n + dfₑ) (BGLR).
-            sig_e2 = (torch.dot(r, r) + hyper["S_e0"]) / _chi2(gen, hyper["df_e"] + n, (), dev)
+            # 3) Residual variance: σ²ₑ = (SSE + Sₑ) / χ²(n_eff + dfₑ) (BGLR);
+            # masked rows carry r = 0 (JAX bayesian.py:762).
+            sig_e2 = ((r * r).sum(1) + hyper["S_e0"]) / _fold_chi2(gens, hyper["df_e"] + n_eff, (), dev)
         if pinned:
             # Oracle mode: variances held fixed so the marker-effect
             # posterior is exactly Gaussian (conjugate).
-            sig_e2 = fix_e
+            sig_e2 = torch.full((F,), hyper["fix_e"], device=dev)
 
         # 4) Marker variances.
         df_b, S_b0 = hyper["df_b"], hyper["S_b0"]
+        sig = sig_e2[:, None]
         if per_marker_var:
             if is_bl:
                 # Bayesian LASSO: τ²ⱼ via inverse-Gaussian; λ² via Gamma.
-                lam2 = S_scale
-                mu_ig = torch.sqrt(lam2 * sig_e2 / torch.clamp(b * b, min=1e-12))
-                nrm = torch.randn(p_pad, generator=gen, device=dev)
-                v = nrm * nrm
-                x_ig = (
-                    mu_ig
-                    + mu_ig * mu_ig * v / (2.0 * lam2)
-                    - mu_ig / (2.0 * lam2) * torch.sqrt(4.0 * lam2 * mu_ig * v + mu_ig**2 * v * v)
-                )
-                ubern = torch.rand(p_pad, generator=gen, device=dev)
-                inv_tau2 = torch.where(ubern <= mu_ig / (mu_ig + x_ig), x_ig,
-                                       mu_ig * mu_ig / torch.clamp(x_ig, min=1e-20))
-                s2 = torch.clamp(sig_e2 / torch.clamp(inv_tau2, min=1e-12), 1e-10, 1e6)
+                lam2 = S_scale[:, None]
+                mu_ig = torch.sqrt(lam2 * sig / torch.clamp(b * b, min=1e-12))
+                nrm = _fold_randn(gens, (p_pad,), dev)
+                inv_tau2 = _inverse_gaussian(mu_ig, lam2, nrm * nrm, _fold_rand(gens, (p_pad,), dev))
+                s2 = torch.clamp(sig / torch.clamp(inv_tau2, min=1e-12), 1e-10, 1e6)
                 if has_indicator:
                     # BLπ: excluded markers refresh τ² from its prior
                     # Exp(λ²/2), not the b=0-degenerate inverse-Gaussian.
-                    u_pr = torch.rand(p_pad, generator=gen, device=dev).clamp_(min=1e-12)
+                    u_pr = _fold_rand(gens, (p_pad,), dev).clamp_(min=1e-12)
                     tau2_prior = -2.0 * torch.log(u_pr) / torch.clamp(lam2, min=1e-12)
-                    s2_prior = torch.clamp(sig_e2 * tau2_prior, 1e-10, 1e6)
+                    s2_prior = torch.clamp(sig * tau2_prior, 1e-10, 1e6)
                     s2 = torch.where(active > 0, s2, s2_prior)
                 # λ² | τ² ~ Gamma(p + shape, Στ²/2 + rate)
-                tau2_sum = torch.where(valid > 0, s2 / sig_e2, 0.0).sum()
-                lam2 = _gamma(gen, p_real + 1.1, (), dev) / (0.5 * tau2_sum + 1.1 / hyper["lam2_0"])
+                tau2_sum = torch.where(valid > 0, s2 / sig, 0.0).sum(1)
+                lam2 = _fold_gamma(gens, p_real + 1.1, (), dev) / (0.5 * tau2_sum + 1.1 / hyper["lam2_0"])
                 # Keep λ² in a safe f32 range: the shrinkage feedback
                 # (σ²ₑ↓ → Στ²↑ → λ²↓ → τ²↑) can otherwise underflow λ²·σ²ₑ.
                 S_scale = torch.clamp(lam2, 1e-10, 1e10)
             else:
                 # Scaled-t (BayesA/B): σ²ⱼ | bⱼ ~ (S + bⱼ²)/χ²(df+1) when
                 # active, prior draw S/χ²(df) when excluded.
-                chis = _chi2(gen, df_b + 1.0, (p_pad,), dev)
-                chis0 = _chi2(gen, df_b, (p_pad,), dev)
-                s2 = torch.where(active > 0, (S_scale + b * b) / chis, S_scale / chis0)
+                chis = _fold_chi2(gens, df_b + 1.0, (p_pad,), dev)
+                chis0 = _fold_chi2(gens, df_b, (p_pad,), dev)
+                S = S_scale[:, None]
+                s2 = torch.where(active > 0, (S + b * b) / chis, S / chis0)
                 s2 = torch.clamp(s2, 1e-10, 1e6)
                 if not fixed_scale:
-                    inv_sum = torch.where(valid > 0, 1.0 / s2, 0.0).sum()
-                    S_scale = _gamma(gen, p_real * df_b / 2.0 + 1.1, (), dev) / (
+                    inv_sum = torch.where(valid > 0, 1.0 / s2, 0.0).sum(1)
+                    S_scale = _fold_gamma(gens, p_real * df_b / 2.0 + 1.1, (), dev) / (
                         0.5 * inv_sum + 1.1 / S_b0
                     )
         else:
             # Common slab variance (BayesC / BRR).
-            ssb = torch.where(active > 0, b * b, 0.0).sum()
-            nb = active.sum()
-            s2_common = (ssb + S_b0 * df_b) / _chi2(gen, df_b + nb, (), dev)
-            s2 = torch.clamp(s2_common, 1e-10, 1e6).expand(p_pad).clone()
+            ssb = torch.where(active > 0, b * b, 0.0).sum(1)
+            nb = active.sum(1)
+            s2_common = (ssb + S_b0 * df_b) / _fold_chi2(gens, df_b + nb, (), dev)
+            s2 = torch.clamp(s2_common, 1e-10, 1e6)[:, None].expand(F, p_pad).clone()
         if pinned:
-            s2 = torch.full((p_pad,), hyper["fix_b"], device=dev)
+            s2 = torch.full((F, p_pad), hyper["fix_b"], device=dev)
 
         # 5) Inclusion probability π (BayesB/C, BLπ, BayesTπ).
         if has_indicator:
-            n_in = incl.sum()
+            n_in = incl.sum(1)
             pi0, counts = hyper["pi_in"], hyper["pi_counts"]
-            g1 = _gamma(gen, pi0 * counts + n_in, (), dev)
-            g2 = _gamma(gen, (1.0 - pi0) * counts + (p_real - n_in), (), dev)
+            g1 = _fold_gamma(gens, pi0 * counts + n_in, (), dev)
+            g2 = _fold_gamma(gens, (1.0 - pi0) * counts + (p_real - n_in), (), dev)
             pi_in = torch.clamp(g1 / (g1 + g2), 1e-4, 1.0 - 1e-4)
 
         # 6) Posterior accumulation after burn-in.
@@ -505,29 +608,33 @@ def _gibbs_chain(
             acc_mu = acc_mu + mu
             acc_n = acc_n + 1.0
         state = (b, r, s2, sig_e2, mu, pi_in, S_scale, None, acc_b, acc_mu, acc_n, z, gam)
-        return state, (sig_e2, b[: min(8, p_pad)].clone())
+        return state, (sig_e2, b[:, : min(8, p_pad)].clone(), mu)
 
     if state_in is not None:
-        gen.set_state(state_in[7])
+        for g, st in zip(gens, state_in[7]):
+            g.set_state(st)
         state = tuple(None if i == 7 else v.clone() for i, v in enumerate(state_in))
     else:
-        state = _initial_state(y, hyper, model_id, p_pad, response_id, n_cats, pinned, gen)
+        state = _initial_state(y, hyper, model_id, F, p_pad, response_id, n_cats, pinned, gens,
+                               row_mask)
     if iters is None:
         iters = range(n_iter)
-    sig_tr, b_tr = [], []
+    sig_tr, b_tr, mu_tr = [], [], []
     for it in iters:
-        state, (s, bp) = sweep(state, int(it))
+        state, (s, bp, m) = sweep(state, int(it))
         sig_tr.append(s)
         b_tr.append(bp)
-    state = state[:7] + (gen.get_state(),) + state[8:]
+        mu_tr.append(m)
+    state = state[:7] + (torch.stack([g.get_state() for g in gens]),) + state[8:]
     acc_b, acc_mu, acc_n = state[8], state[9], state[10]
     safe_n = torch.clamp(acc_n, min=1e-12)
-    b_mean = acc_b / safe_n
+    b_mean = acc_b / safe_n[:, None]
     # Undo the centering reparametrization: y = mu_c + (X - mu_cols)·b
     #                                         = (mu_c - mu_cols·b) + X·b.
-    mu_out = acc_mu / safe_n - torch.dot(panel.mu_cols, b_mean)
-    traces = (torch.stack(sig_tr), torch.stack(b_tr)) if sig_tr else (
-        torch.zeros(0, device=dev), torch.zeros((0, min(8, p_pad)), device=dev))
+    mu_out = acc_mu / safe_n - (panel.mu_cols * b_mean).sum(1)
+    traces = (torch.stack(sig_tr), torch.stack(b_tr), torch.stack(mu_tr)) if sig_tr else (
+        torch.zeros((0, F), device=dev), torch.zeros((0, F, min(8, p_pad)), device=dev),
+        torch.zeros((0, F), device=dev))
     if return_state:
         return mu_out, b_mean, traces, state
     return mu_out, b_mean, traces
@@ -547,6 +654,28 @@ def _resolve_update(model, indicator_update, block_size, p, group_size, dev):
             return "pallas"
         return "grouped"
     return indicator_update
+
+
+def _plan(model, indicator_update, block_size, p, dev):
+    """(update, group_size, bs, p_pad, n_blocks) of a chain over p markers:
+    the within-block path, the group size K (0 when not grouped), and the
+    block size rounded up to whole groups."""
+    K = int(get_config().mcmc_group_size)
+    update = _resolve_update(model, indicator_update, block_size, p, K, dev)
+    if update in ("grouped", "pallas") and model in _INDICATOR:
+        group_size = K
+    elif update == "grouped" and model == "BL":
+        # BL rides the grouped machinery degenerated to the single all-ones
+        # pattern (K-marker joint draws; no kernel variant for this shape).
+        group_size = K
+    else:
+        group_size = 0
+    bs = int(min(block_size, max(8, p)))
+    if group_size > 1:
+        group_size = min(group_size, bs)
+        bs = ((bs + group_size - 1) // group_size) * group_size  # bs | K groups
+    p_pad = ((p + bs - 1) // bs) * bs
+    return update, group_size, bs, p_pad, p_pad // bs
 
 
 def gibbs_regression(
@@ -616,16 +745,8 @@ def gibbs_regression(
     if not isinstance(X, torch.Tensor):
         X = np.asarray(X, dtype=np.float32)
     n, p = X.shape
-    update = _resolve_update(model, indicator_update, block_size, p, int(cfg.mcmc_group_size), dev)
+    update, group_size, bs, p_pad, n_blocks = _plan(model, indicator_update, block_size, p, dev)
     pallas_groups = update == "pallas"
-    if update in ("grouped", "pallas") and model in _INDICATOR:
-        group_size = int(cfg.mcmc_group_size)
-    elif update == "grouped" and model == "BL":
-        # BL rides the grouped machinery degenerated to the single all-ones
-        # pattern (K-marker joint draws; no kernel variant for this shape).
-        group_size = int(cfg.mcmc_group_size)
-    else:
-        group_size = 0
     pinned = fix_sigma_e2 is not None or fix_sigma_b2 is not None
     if pinned and (fix_sigma_e2 is None or fix_sigma_b2 is None):
         raise ValueError("fix_sigma_e2 and fix_sigma_b2 must be set together")
@@ -638,12 +759,6 @@ def gibbs_regression(
             raise ValueError("ordinal response needs >= 2 categories")
         response_id = 1
     y = np.asarray(y, dtype=np.float32).reshape(-1)
-    bs = int(min(block_size, max(8, p)))
-    if group_size > 1:
-        group_size = min(group_size, bs)
-        bs = ((bs + group_size - 1) // group_size) * group_size  # bs | K groups
-    p_pad = ((p + bs - 1) // bs) * bs
-    n_blocks = p_pad // bs
 
     t0 = time.perf_counter()
     if isinstance(X, torch.Tensor):
@@ -667,9 +782,9 @@ def gibbs_regression(
             hit = _PANEL_CACHE.put(fp, (Xp, _center_(Xp)))
         Xp, mu_cols = hit
         ms_x = float(np.sum(np.var(X, axis=0)))
-    panel = _setup(Xp, mu_cols, bs, n_blocks)
+    panel = _setup(Xp[None], mu_cols[None], bs, n_blocks)
     if ms_x is None:
-        ms_x = float(panel.x2[:p].sum()) / n  # Σ column variances (ddof 0)
+        ms_x = float(panel.x2[0, :p].sum()) / n  # Σ column variances (ddof 0)
     valid = torch.zeros(p_pad, dtype=torch.float32, device=dev)
     valid[:p] = 1.0
     var_y = 1.0 if response_id == 1 else float(np.var(y, ddof=1))
@@ -680,11 +795,15 @@ def gibbs_regression(
     t_prep = time.perf_counter() - t0
 
     def run(gen, **kw):
-        return _gibbs_chain(
-            panel, y_t, valid, gen, hyper, _MODEL_IDS[model], int(n_iter), int(n_burnin), bs,
+        """One chain (the fold axis of one): (mu, b_mean, (σ²ₑ trace, effect
+        trace)[, state])."""
+        out = _gibbs_chain(
+            panel, y_t, valid, [gen], hyper, _MODEL_IDS[model], int(n_iter), int(n_burnin), bs,
             n_blocks, response_id=response_id, n_cats=n_cats, pinned=pinned,
             group_size=group_size, pallas_groups=pallas_groups, **kw,
         )
+        mu_t, b_t, (sig, bp, _) = out[:3]
+        return (mu_t[0], b_t[0], (sig[:, 0], bp[:, 0])) + tuple(out[3:])
 
     seeds = np.random.SeedSequence(seed).generate_state(n_chains, dtype=np.uint64)
     gens = [torch.Generator(device=dev).manual_seed(int(s) & (2**63 - 1)) for s in seeds]
@@ -738,7 +857,116 @@ def gibbs_regression(
     return mu_hat, b_hat, diag
 
 
-def _hoists(model, bs, p_pad, group_size, pallas_groups) -> Tuple[bool, bool]:
+def _fold_seed(seed: int, fold: int) -> int:
+    """Fold `fold`'s generator seed, from (seed, fold) alone: a fold draws the
+    same numbers whatever other folds run beside it."""
+    return int(np.random.SeedSequence([seed, fold]).generate_state(1, dtype=np.uint64)[0]) & (2**63 - 1)
+
+
+def gibbs_cv_folds(
+    X,
+    y,
+    fold_masks,
+    model: str = "BayesC",
+    n_iter: int = None,
+    n_burnin: int = None,
+    seed: int = 42,
+    block_size: int = None,
+    r2: float = 0.5,
+    fix_sigma_e2: Optional[float] = None,
+    fix_sigma_b2: Optional[float] = None,
+    mesh=None,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold-batched Bayesian CV (JAX bayesian.py:1180-1334): F independent
+    chains, one per {0,1} training row mask (fold_masks (F, n)), run as one
+    chain with a leading fold axis on `device`.
+
+    Each chain is the exact Gibbs sampler on its fold's training subset:
+    masked rows of the fold's centered panel are zero (they contribute
+    nothing to Xᵀr, the block Grams or the residual), and the entry count n
+    is replaced by n_eff = Σmask in the intercept draw, the residual χ²
+    degrees of freedom and the inits. On the card the indicator models run
+    K3 once per block and sweep for all F folds; BL and the joint-draw
+    models run their torch paths batched over the folds. Fold f draws from
+    its own generator, seeded from (seed, f), so it is the chain it would be
+    alone. The reference refits its sampler per fold in a Julia thread, each
+    fit a fresh Rscript+BGLR subprocess (src/cross_validation.jl:159-185,
+    src/bayes.jl:92-93).
+
+    `X` is a host array or a tensor (n, p), uncentered. Hyperparameters
+    (BGLR R2-based scalings) come once from the full panel and y rather than
+    per fold. Gaussian responses only. `mesh=` (folds over several devices)
+    is not ported yet. Returns (mu_hat (F,), b_hat (F, p)) as float64 numpy.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "gibbs_cv_folds(mesh=...): folds across several devices are not ported yet "
+            "(ROADMAP queue A, step 11)"
+        )
+    if model not in _MODEL_IDS:
+        raise ValueError(f"unknown Bayesian model {model!r}; choose from {BAYESIAN_MODELS}")
+    masks = np.asarray(fold_masks, dtype=np.float32)
+    n = X.shape[0]
+    if masks.ndim != 2 or masks.shape[1] != n:
+        raise ValueError(f"fold_masks must be (F, n={n}); got {masks.shape}")
+    if np.any(masks.sum(axis=1) < 2):
+        raise ValueError("every fold needs >= 2 training rows")
+    seeds = [_fold_seed(seed, f) for f in range(masks.shape[0])]
+    return _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2,
+                        fix_sigma_e2, fix_sigma_b2, resolve_device(device))[:2]
+
+
+def _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2, fix_sigma_e2,
+                 fix_sigma_b2, dev):
+    """`gibbs_cv_folds` past its checks: the chains of masks (F, n), fold f's
+    generator seeded with seeds[f]. Returns (mu (F,), b (F, p), the σ²ₑ
+    trace (n_iter, F), the centered intercept's trace (n_iter, F)), float64
+    numpy."""
+    cfg = get_config()
+    n_iter = cfg.mcmc_n_iter if n_iter is None else n_iter
+    n_burnin = cfg.mcmc_n_burnin if n_burnin is None else n_burnin
+    block_size = cfg.mcmc_block_size if block_size is None else block_size
+    pinned = fix_sigma_e2 is not None or fix_sigma_b2 is not None
+    if pinned and (fix_sigma_e2 is None or fix_sigma_b2 is None):
+        raise ValueError("fix_sigma_e2 and fix_sigma_b2 must be set together")
+    F, n = masks.shape
+    p = X.shape[1]
+    update, group_size, bs, p_pad, n_blocks = _plan(model, cfg.mcmc_indicator_update, block_size,
+                                                    p, dev)
+    y = np.asarray(y.cpu() if isinstance(y, torch.Tensor) else y, dtype=np.float32).reshape(-1)
+    if isinstance(X, torch.Tensor):
+        Xd = X.to(device=dev, dtype=torch.float32)
+        ms_x = float(Xd.var(0, correction=0).sum())
+    else:
+        X = np.asarray(X, dtype=np.float32)
+        Xd = torch.from_numpy(X).to(dev)
+        ms_x = float(np.sum(np.var(X, axis=0)))
+    W = torch.from_numpy(masks).to(dev)
+    n_eff = W.sum(1)
+    # Each fold's centered, row-masked, padded panel (JAX bayesian.py:177-188),
+    # built one fold at a time so the transient stays one panel.
+    Xf = torch.zeros((F, n, p_pad), dtype=torch.float32, device=dev)
+    mu_cols = torch.zeros((F, p_pad), dtype=torch.float32, device=dev)
+    for f in range(F):
+        mu_cols[f, :p] = (W[f] @ Xd) / n_eff[f]
+        Xf[f, :, :p] = (Xd - mu_cols[f, :p]) * W[f][:, None]
+    panel = _setup(Xf, mu_cols, bs, n_blocks)
+    valid = torch.zeros(p_pad, dtype=torch.float32, device=dev)
+    valid[:p] = 1.0
+    hyper = _hyper(model, float(np.var(y, ddof=1)), max(ms_x, 1e-8), p, r2, fix_sigma_e2,
+                   fix_sigma_b2)
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    mu, b, (sig, _, mu_tr) = _gibbs_chain(
+        panel, torch.from_numpy(y).to(dev), valid, gens, hyper, _MODEL_IDS[model], int(n_iter),
+        int(n_burnin), bs, n_blocks, pinned=pinned, group_size=group_size,
+        pallas_groups=update == "pallas", row_mask=W,
+    )
+    return (mu.double().cpu().numpy(), b[:, :p].double().cpu().numpy(),
+            sig.double().cpu().numpy(), mu_tr.double().cpu().numpy())
+
+
+def _hoists(model, bs, p_pad, group_size, pallas_groups, chains: int = 1) -> Tuple[bool, bool]:
     """(hoist_groups, hoist_joint): whether a sweep builds its within-block
     tables once for all blocks.
 
@@ -747,19 +975,23 @@ def _hoists(model, bs, p_pad, group_size, pallas_groups) -> Tuple[bool, bool]:
     table's K² floats per pattern (no tile padding on CUDA or the host).
     Joint draw (BRR/BayesA/BayesT): the block precisions are sweep-constant
     too, so all Choleskys and inverses batch into one factorization, gated
-    as in the reference (bs <= 384 and the table's floats)."""
+    as in the reference on bs <= 384 and on the table's floats (the
+    reference's 1e8 for one chain, `_FOLD_JOINT_TABLE_FLOATS` for several).
+    `chains` fold chains hold `chains` tables: the gates count them in total, as the JAX
+    gate's `batch_hint` does (bayesian.py:279-282, :298-304)."""
     indicator = model in _INDICATOR
     if group_size > 1 and (indicator or model == "BL"):
         n_pat = (1 << group_size) if indicator else 1
-        fits = (p_pad // group_size) * n_pat * group_size**2 <= _GROUP_TABLE_FLOATS
+        fits = chains * (p_pad // group_size) * n_pat * group_size**2 <= _GROUP_TABLE_FLOATS
         return (not pallas_groups and fits), False
     joint = not indicator and model not in ("BL", "BLPi")
-    return False, joint and bs <= 384 and (p_pad // bs) * bs * bs <= _JOINT_TABLE_FLOATS
+    budget = _JOINT_TABLE_FLOATS if chains == 1 else _FOLD_JOINT_TABLE_FLOATS
+    return False, joint and bs <= 384 and chains * (p_pad // bs) * bs * bs <= budget
 
 
-def _path_name(model, bs, p_pad, group_size, pallas_groups) -> str:
+def _path_name(model, bs, p_pad, group_size, pallas_groups, chains: int = 1) -> str:
     """Name of the within-block path a chain runs, for the diagnostics."""
-    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups)
+    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups, chains)
     if group_size > 1 and (model in _INDICATOR or model == "BL"):
         return "pallas" if pallas_groups else ("grouped-hoisted" if hoist_groups else "grouped")
     if model in _INDICATOR or model in ("BL", "BLPi"):

@@ -11,14 +11,20 @@ Each DIR holds an earlier `gibbs_group.cu` with the C entry point
 git-ignored directory under `build/`. A source whose entry point takes no
 workspace (the one-CTA kernel of the first port) is called as such; one that
 takes a workspace (tables, flags, epoch, slice, staged columns) gets the
-current wrapper's `k3_layout` and a workspace of its own. Each is compiled with the port's
-nvcc flags into its own library under `build/gibbs_before/<DIR name>/`.
+current wrapper's `k3_layout` and a workspace of its own, and one with a fold
+axis (its entry point takes `folds` and fold strides) is called with one
+fold. Each is compiled with the port's nvcc flags into its own library under
+`build/gibbs_before/<DIR name>/`. The `after` row goes through the port's
+wrapper and carries its host time; pass the current
+`genomicbreedingmodels_tpu_torch/csrc` as a `--before` too to time the
+current kernel through the same bare call as the earlier builds.
 
 At each shape (`--shape bs:K`, default 600:6 and 600:8, the chain's block at
 K=6 and 8) the script draws one block as the chain hands it to K3 (Cb and u
 of a random centered dosage panel, sparse effects, the noise), holds every
 build against the plain version (identical selections, draws within
-1e-4·max(1, max|b|)), then times the builds by CUDA events in turns (before,
+1e-4·max(1, max|b|)) and says whether its outputs are bit-equal to the
+current build's, then times the builds by CUDA events in turns (before,
 after, after, before, ... for `--rounds` rounds), each with Cb cold in L2
 (after overwriting 64 MB, less the time of that overwrite), as the chain
 finds it, and warm. It prints the card's name and power limit, one line per
@@ -38,11 +44,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-_OLD_ABI = (ctypes.c_void_p,) * 12 + (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)
+_P, _S = ctypes.c_void_p, ctypes.c_longlong
+_ABIS = {  # the entry point's arguments in each generation of the kernel
+    "one-CTA": (_P,) * 12 + (_S, _S, _P),
+    "workspace": (_P,) * 12 + (_S, _S, _P, _P, _S, _S, _S, _P),
+    "folds": (_P,) * 12 + (_S, _S, _P, _P) + (_S,) * 10 + (_P,),
+}
 
 
 def build_before(src: Path):
-    """(entry point, takes a workspace) of the earlier source, compiled as the port compiles its own."""
+    """(entry point, its ABI) of the earlier source, compiled as the port compiles its own."""
     from genomicbreedingmodels_tpu_torch.kernels import _build
 
     saved = _build.CSRC, _build.BUILD_DIR
@@ -51,11 +62,12 @@ def build_before(src: Path):
         lib = ctypes.CDLL(str(_build.build()))
     finally:
         _build.CSRC, _build.BUILD_DIR = saved
-    workspace = "epoch" in (src / "gibbs_group.cu").read_text()
+    text = (src / "gibbs_group.cu").read_text()
+    abi = "folds" if "cb_fs" in text else "workspace" if "epoch" in text else "one-CTA"
     fn = lib.gbm_gibbs_group
-    fn.argtypes = list(_build._ENTRY_POINTS["gbm_gibbs_group"] if workspace else _OLD_ABI)
+    fn.argtypes = list(_ABIS[abi])
     fn.restype = ctypes.c_int
-    return fn, workspace
+    return fn, abi
 
 
 def main() -> int:
@@ -90,12 +102,14 @@ def main() -> int:
     def run(which, a, K):
         if builds[which] is None:
             return gibbs_group.grouped_block_update(*a, K=K)
-        fn, workspace = builds[which]
+        fn, abi = builds[which]
         bs = a[0].shape[0]
         out = [torch.empty(bs, device=a[0].device) for _ in range(3)]
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [t.data_ptr() for t in (*a, *out)]
-        if workspace:  # its own workspace: one flag per group covers any flag layout
+        if abi == "one-CTA":
+            rc = fn(*ptrs, bs, K, stream)
+        else:  # its own workspace: one flag per group covers any flag layout
             lay = gibbs_group.k3_layout(bs, K)
             ws = spaces.get((which, bs, K))
             if ws is None:
@@ -103,10 +117,9 @@ def main() -> int:
                     torch.empty(lay.table_floats, device=a[0].device),
                     torch.zeros(lay.groups, dtype=torch.int32, device=a[0].device), 0]
             ws[2] = gibbs_group.next_epoch(ws[2])
+            one_fold = (1, 0, 0, 0, 0, 0, 0) if abi == "folds" else ()
             rc = fn(*ptrs, bs, K, ws[0].data_ptr(), ws[1].data_ptr(), ws[2], lay.slice_floats,
-                    lay.staged_quads, stream)
-        else:
-            rc = fn(*ptrs, bs, K, stream)
+                    lay.staged_quads, *one_fold, stream)
         if rc:
             raise RuntimeError(f"{which}: launch failed, cudaError {rc}")
         return out
@@ -122,11 +135,13 @@ def main() -> int:
         d_p, b_p, incl_p = gibbs_group.grouped_block_update_plain(*a, K=K)
         tol = 1e-4 * max(1.0, float(b_p.abs().max()))
         t = {w: {"cold": [], "warm": []} for w in builds}
-        agree = {}
+        agree, same = {}, {}
+        now = run("after", a, K)
         for w in builds:
             d, b, incl = run(w, a, K)
             torch.cuda.synchronize()
             agree[w] = bool(torch.equal(incl, incl_p)) and float((b - b_p).abs().max()) <= tol
+            same[w] = all(torch.equal(x, y) for x, y in zip((d, b, incl), now))
             agree_all &= agree[w]
         order = list(builds)
         for r in range(args.rounds):
@@ -138,9 +153,9 @@ def main() -> int:
             fmt = lambda v: " / ".join(f"{x:.4f}" for x in v)  # noqa: E731
             print(f"bs={bs} K={K} {w}: cold {fmt(t[w]['cold'])} ms "
                   f"({min(t[w]['cold']) / G * 1e3:.3f} us per group), warm {fmt(t[w]['warm'])} ms, "
-                  f"agrees with plain={agree[w]} [{smi}]", flush=True)
+                  f"agrees with plain={agree[w]}, bit-equal to after={same[w]} [{smi}]", flush=True)
             rows.append(dict(bs=bs, K=K, build=w, cold_ms=t[w]["cold"], warm_ms=t[w]["warm"],
-                             agree=agree[w]))
+                             agree=agree[w], bit_equal_to_after=same[w]))
     print(json.dumps({"card": smi, "rows": rows}))
     return 0 if agree_all else 1
 

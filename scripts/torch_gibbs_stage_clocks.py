@@ -104,7 +104,8 @@ def main() -> int:
     out_dir = ROOT / "build" / "gibbs_stage_clocks"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "gibbs_group.cu").write_text(instrumented_source())
-    fn, _ = build_before(out_dir)
+    fn, abi = build_before(out_dir)
+    one_fold = (1, 0, 0, 0, 0, 0, 0) if abi == "folds" else ()  # folds and their strides
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(2**24, device=dev)  # 64 MB, beyond the 50 MB L2
@@ -122,7 +123,7 @@ def main() -> int:
             if cold:
                 flush.zero_()
             rc = fn(*ptrs, bs, K, tables.data_ptr(), flags.data_ptr(), epoch, lay.slice_floats,
-                    lay.staged_quads, stream)
+                    lay.staged_quads, *one_fold, stream)
             if rc:
                 raise RuntimeError(f"launch failed: cudaError {rc}")
 

@@ -248,6 +248,103 @@ def test_gibbs_group_two_threads_one_stream_on_card(cuda_device):
             _assert_agree(out, refs[t], 2)
 
 
+def _fold_blocks(dev, F, bs, K, n_invalid, seed=30):
+    """F independent blocks stacked on a fold axis, as the fold chain hands
+    them to K3: b and s2 are (F, bs) slices of (F, 3·bs) states (fold stride
+    3·bs), the rest (F, ...) contiguous; σ²ₑ and π differ per fold."""
+    blocks = [_gibbs_block(dev, bs, K, n=400, n_invalid=n_invalid, seed=seed + f) for f in range(F)]
+    Cb, u, b, s2, val, eta, gum = (torch.stack([blk[i] for blk in blocks]) for i in range(7))
+    state_b = torch.zeros(F, 3 * bs, device=dev)
+    state_b[:, bs : 2 * bs] = b
+    state_s2 = torch.ones(F, 3 * bs, device=dev)
+    state_s2[:, bs : 2 * bs] = s2 * torch.linspace(0.5, 2.0, F, device=dev)[:, None]
+    sig = torch.linspace(0.6, 1.4, F, device=dev)
+    pi = torch.linspace(0.05, 0.4, F, device=dev)
+    return (Cb, u, state_b[:, bs : 2 * bs], state_s2[:, bs : 2 * bs], val[0], eta, gum, sig, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 5, 15, 200])
+def test_gibbs_group_fold_batched_matches_single_launches_on_card(cuda_device, F):
+    """One fold-batched K3 call against F single launches (bit-equal: each
+    fold runs the same code on the same numbers) and against the plain
+    version, at the cv cell's bs=258, K=6. F = 200 exceeds the 132 SMs: the
+    wrapper splits it into launches of at most half the SMs, and the call
+    must finish (a launch whose scan CTAs starved their builders would spin
+    until its waits trap), so it runs under a timeout."""
+    import threading
+
+    bs, K = 258, 6
+    args = _fold_blocks(cuda_device, F, bs, K, n_invalid=5)
+    cap = gibbs_group.folds_per_launch(torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    torch.cuda.synchronize()
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    out = []
+
+    def run():
+        out.append(gibbs_group.grouped_block_update(*args, K=K))
+        torch.cuda.synchronize()
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive(), "the fold-batched K3 launch did not finish"
+    assert out, "the fold-batched K3 launch raised"
+    assert gibbs_group.LAUNCHES["gibbs_group"] == before + -(-F // cap)
+    d, b_new, incl = out[0]
+    assert d.shape == (F, bs)
+    ref = gibbs_group.grouped_block_update_plain(*args, K=K)
+    for f in range(F):
+        one = gibbs_group.grouped_block_update(args[0][f], args[1][f], args[2][f].contiguous(),
+                                               args[3][f].contiguous(), args[4], args[5][f],
+                                               args[6][f], args[7][f], args[8][f], K=K)
+        for x, r in zip((d, b_new, incl), one):
+            assert torch.equal(x[f], r), f
+        _assert_agree((d[f], b_new[f], incl[f]), tuple(r[f] for r in ref), 5)
+
+
+@pytest.mark.cuda
+def test_gibbs_group_f1_fold_launch_is_the_single_launch_on_card(cuda_device):
+    """F = 1 through the fold axis is the single-chain launch, bit for bit."""
+    args = _gibbs_block(cuda_device, 600, 6, n_invalid=3, seed=40)
+    one = gibbs_group.grouped_block_update(*args, K=6)
+    folded = gibbs_group.grouped_block_update(*(a[None] for a in args[:4]), args[4],
+                                              *(a[None] for a in args[5:]), K=6)
+    for x, r in zip(folded, one):
+        assert torch.equal(x[0], r)
+
+
+@pytest.mark.cuda
+def test_bayesc_fold_chains_on_card_near_closed_form(cuda_device):
+    """BayesC fold chains on the card (K3 once per block and sweep for all 3
+    folds) with pinned variances, each fold's GEBVs against its training
+    rows' closed-form ridge posterior mean: cor >= 0.99, the bound of
+    tests/test_torch_bayesian.py's pinned BayesC chain (its spike-and-slab
+    mean is not the ridge mean)."""
+    import numpy as np
+
+    import genomicbreedingmodels_tpu_torch as gbm
+
+    rng = np.random.default_rng(13)
+    n, p, sig_e2, sig_b2 = 90, 40, 0.5, 0.05
+    X = rng.uniform(size=(n, p))
+    idx = rng.choice(p, 10, replace=False)
+    g = X[:, idx] @ rng.normal(size=10)
+    y = np.sqrt(0.6) * (g - g.mean()) / g.std() + np.sqrt(0.4) * rng.normal(size=n)
+    labels = rng.integers(0, 3, size=n)
+    masks = np.stack([labels != f for f in range(3)]).astype(np.float32)
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    mu, b = gbm.gibbs_cv_folds(X, y, masks, model="BayesC", n_iter=1200, n_burnin=200, seed=17,
+                               fix_sigma_e2=sig_e2, fix_sigma_b2=sig_b2, device="cuda")
+    assert gibbs_group.LAUNCHES["gibbs_group"] - before == 1200  # one block, one launch a sweep
+    for f in range(3):
+        m = masks[f] > 0
+        Z = X[m] - X[m].mean(0)
+        b_star = np.linalg.solve(Z.T @ Z / sig_e2 + np.eye(p) / sig_b2, Z.T @ (y[m] - y[m].mean()) / sig_e2)
+        yhat = (y[m].mean() - X[m].mean(0) @ b_star) + X @ b_star
+        assert np.corrcoef(mu[f] + X @ b[f], yhat)[0, 1] >= 0.99, f
+
+
 @pytest.mark.cuda
 def test_gibbs_group_wrapper_rejects_bad_inputs_on_card(cuda_device):
     args = list(_gibbs_block(cuda_device, 60, 6))
