@@ -75,7 +75,15 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 14. epistasis (`epistasis_phase`): `transform2` (mult, addnorm, raise_) on
    the card against device="cpu" at 256x2048; the JAX bench's `epistasis`
    cell (512x16384, k=1000, mult and addnorm, cold and warm, pairs/s);
-   `epistasisfeatures` (n_reps=1) at 512x2048 and its round-trip.
+   `epistasisfeatures` (n_reps=1) at 512x2048 and its round-trip;
+15. out-of-core and the command line (`outofcore_phase`): .bed round trips,
+   `grm_from_bed` (K1 for complete shards, K2 for imputed ones) and the
+   card's `unpack_bed_payload` against the host at 512x4096; the JAX bench's
+   `diskstream` cell (25,000 x 250,000 .bed streamed in 8 shards: pieces CG
+   and dense K1 + Cholesky) and `northstar` cell (50,000 x 500,000 as 8
+   int8 shards made on the card: pieces CG and dense K1 + Cholesky), SNPs/s
+   with stages and peak memory; `python -m genomicbreedingmodels_tpu_torch`
+   fit/predict/grm in-process on phase 6's called panel.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
@@ -83,10 +91,10 @@ held against its plain version once more, on the first block of phase 7's
 chain as the chain called it. Phase 10 runs with the counters reset again
 and read after it, and every kernel must have launched there too; so do
 phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
-launch) and 14 (no hand kernel on its path). After each of phases 5-9, 10,
-11, 12, 13 and 14 is read, K1 and K2 are held against their plain versions
-at every operand shape, and K3 at every (folds, bs, K), the phase launched
-them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
+launch), 14 (no hand kernel on its path) and 15 (K1 and K2 must launch).
+After each of phases 5-9, 10, 11, 12, 13, 14 and 15 is read, K1 and K2
+are held against their plain versions at every operand shape, and K3 at
+every (folds, bs, K), the phase launched them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
 panel goes through the profiler.
 The second-to-last line is the kernels' JSON record, the last line the
 device record. Any failed check raises, so the script exits non-zero and
@@ -1192,6 +1200,375 @@ def epistasis_phase(gbm, dev, card: str, small=(256, 2048), cell=(512, 16_384),
     return dict(gbm.LAUNCHES)
 
 
+# Phase 15: the JAX bench's out-of-core cells (bench.py:224-283 `diskstream`,
+# a random complete .bed streamed in shards of DISK_CELL[2] markers;
+# bench.py:132-216 `northstar`, NORTH_CELL[2] int8 shards synthesized on the
+# card), a 512x4096 correctness panel, and the command line.
+DISK_CELL = (25_000, 250_000, 31_250)  # n, p, block_cols
+NORTH_CELL = (50_000, 500_000, 8)  # n, p, shards
+OOC_CG_ITERS, OOC_SEED = 30, 15
+# grm_from_bed on the card: against the in-memory K1 Gram of the same calls
+# (both exact int32, then the same f32 epilogue), and against device="cpu"
+# (the CPU's f32 centering and, for imputed shards, K2 against float64).
+OOC_MEM_TOL, OOC_CPU_TOL = 1e-6, 1e-5
+# The pieces CG against the dense Cholesky: GEBV = y_c - λα, so a CG residual
+# r moves the GEBV by at most λ‖Δα‖ <= λ‖r‖/λ_min(K + λI) <= ‖r‖; the rest is
+# float32 rounding of the two solves, OOC_GEBV_REL·max|GEBV|.
+OOC_GEBV_REL = 1e-4
+CLI_TOL = 1e-5  # CLI against the Python API: GEBVs and the streamed GRM, over their max
+
+
+def h2d_line(card: str, mb: int = 256) -> None:
+    """Prints the host→device GB/s of one `mb` MB copy from pageable and from
+    pinned memory (best of 3), as the JAX bench's link probe (bench.py:92)."""
+    import torch
+
+    rates = {}
+    for label, pin in (("pageable", False), ("pinned", True)):
+        host = torch.empty(mb * 2**20, dtype=torch.uint8, pin_memory=pin)
+        dev = torch.empty_like(host, device="cuda")
+        best = min(cuda_ms(lambda: dev.copy_(host, non_blocking=pin), reps=3) for _ in range(3))
+        rates[label] = host.numel() / best / 1e6
+    print(f"h2d {mb} MB: pageable {rates['pageable']:.2f} GB/s, pinned {rates['pinned']:.2f} GB/s "
+          f"(CUDA events, best of 3) {card}")
+
+
+def outofcore_phase(gbm, dev, card: str, called, phenomes, small=(512, 4096), disk=DISK_CELL,
+                    north=NORTH_CELL, cli_block_cols: int = 4096) -> tuple:
+    """Phase 15, the out-of-core path and the command line, with the launch
+    counters set to 0 just before it; returns (the counts it launched, the
+    K1 timings at the shapes of (b) and (c), taken after the counts).
+
+    (a) `small` n x p: simulate_genomes snapped to {0, ½, 1}, written by
+    `write_bed`, and a copy with 1 % missing calls: `read_bed` returns each
+    exactly; `grm_from_bed` on the card against `gram_dosage` of the panel
+    read back (OOC_MEM_TOL) and, on both files, against device="cpu"
+    (OOC_CPU_TOL; the missing file's imputed shards take K2);
+    `unpack_bed_payload` on the card bit-equal to the host decode with the
+    same missing count; `gblup_from_bed_pieces` (300 CG iterations) within
+    2e-3 of `gblup_from_bed` with a residual under 1e-3 (the JAX test's
+    tolerances) and raising on missing calls.
+    (b) the `diskstream` cell at `disk` = (n, p, block_cols): a
+    `write_random_bed` trio under the temporary directory (reused when its
+    size is right), a host-only pass, `gblup_from_bed_pieces` (λ = 0.1, 30
+    CG iterations) and the dense `gblup_from_bed` (K1 per shard + Cholesky),
+    SNPs/s with stage splits, peak memory, the per-shard device time of each
+    path, the pinned and pageable h2d rates; GEBVs finite, the two within
+    the CG residual + OOC_GEBV_REL·max|GEBV|.
+    (c) the `northstar` cell at `north` = (n, p, shards): shards of p/shards
+    int8 columns synthesized on the card; pieces (4096 wide) + center + 30
+    CG iterations at lam_rel = 1e-3, then the same shards through K1, the
+    raw int32 triangles added, scaled and centered once, `gblup_solve_lower`
+    at the same λ: SNPs/s, stages and peak memory of each; GEBVs as in (b).
+    (d) the command line in-process (`__main__.main`) on phase 6's called
+    panel written as a .bed: `fit --model gblup` (K1) then `predict` against
+    the Python API (CLI_TOL), `fit` with the default ridge (K2 in bf16),
+    `grm --streaming` against `grm` in memory up to the VanRaden scale
+    (CLI_TOL).
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch import streaming
+    from genomicbreedingmodels_tpu_torch.__main__ import main as cli
+    from genomicbreedingmodels_tpu_torch.io import write_random_bed
+    from genomicbreedingmodels_tpu_torch.kernels.gram_tri import gram_tri_int8
+    from genomicbreedingmodels_tpu_torch.native.lib import library_path, load_native
+    from genomicbreedingmodels_tpu_torch.ops import pieces as pc
+    from genomicbreedingmodels_tpu_torch.ops.chol import gblup_solve_lower
+    from genomicbreedingmodels_tpu_torch.ops.grm import (
+        _center_gram_lower,
+        encode_dosage,
+        entry_major,
+        gram_dosage,
+        gram_tri_snp_major,
+    )
+    from genomicbreedingmodels_tpu_torch.utils.logging import StageTimer
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def stages(timer):
+        return " ".join(f"{k}={v:.3f}s" for k, v in timer.totals.items())
+
+    gbm.reset_launches()
+    check(load_native() is not None, "the port's native gbmio library builds and loads")
+    print(f"native gbmio: {library_path()}")
+    tmp = tempfile.TemporaryDirectory(prefix="gbm_ooc_")
+    work = Path(tmp.name)
+    try:
+        # -- (a) correctness at `small` --------------------------------------------
+        n, p = small
+        g = gbm.simulate_genomes(n=n, l=p, seed=OOC_SEED)
+        F = np.rint(2.0 * g.allele_frequencies) / 2.0
+        Fm = F.copy()
+        Fm[np.random.default_rng(OOC_SEED).random(F.shape) < 0.01] = np.nan
+        files = {}
+        for label, FF in (("complete", F), ("missing", Fm)):
+            files[label] = work / label
+            gbm.write_bed(gbm.Genomes(entries=g.entries, populations=g.populations,
+                                      loci_alleles=g.loci_alleles, allele_frequencies=FF),
+                          files[label])
+            back = gbm.read_bed(files[label])
+            exact = (np.array_equal(back.allele_frequencies, FF, equal_nan=True)
+                     and np.array_equal(back.loci_alleles, g.loci_alleles)
+                     and np.array_equal(back.entries, g.entries))
+            check(exact, f"read_bed returns the written {label} panel")
+        bc = 1000  # shards of 1000 markers and a last one of p % 1000: widths off the 16 grid
+        K = streaming.grm_from_bed(files["complete"], block_cols=bc, device=dev)
+        D = encode_dosage(gbm.read_bed(files["complete"]).allele_frequencies)
+        K_mem = gram_dosage(D, device=dev)
+        err_mem = float((K - K_mem).abs().max() / K_mem.abs().max())
+        errs = {}
+        for label, path in files.items():
+            k2 = gbm.LAUNCHES["gram_tri_float"]
+            Kd = streaming.grm_from_bed(path, block_cols=bc, device=dev).cpu()
+            k2 = gbm.LAUNCHES["gram_tri_float"] - k2
+            Kc = streaming.grm_from_bed(path, block_cols=bc, device="cpu")
+            errs[label] = float((Kd - Kc).abs().max() / Kc.abs().max())
+            check(errs[label] <= OOC_CPU_TOL, f"grm_from_bed {label} on the card vs device='cpu'")
+            check((k2 > 0) == (label == "missing") or not cuda,
+                  f"grm_from_bed {label}: K2 runs exactly for the imputed shards")
+        check(err_mem <= OOC_MEM_TOL, "grm_from_bed vs gram_dosage of the panel read back")
+        unpack_ok = []
+        for label, FF in (("complete", F), ("missing", Fm)):
+            st = streaming.BedShardStreamer(files[label], block_cols=bc)
+            for a, b, payload in st.iter_payload():
+                Dd, miss = pc.unpack_bed_payload(torch.from_numpy(payload).to(dev), st.n)
+                expect = np.nan_to_num(FF[:, a:b].T * 2.0, nan=0.0).astype(np.int8)
+                unpack_ok.append(torch.equal(Dd.cpu(), torch.from_numpy(expect))
+                                 and int(miss) == int(np.isnan(FF[:, a:b]).sum()))
+        check(all(unpack_ok), "unpack_bed_payload on the card equals the host decode")
+        y = np.random.default_rng(OOC_SEED).normal(size=n)
+        gp, resid = streaming.gblup_from_bed_pieces(files["complete"], y, lam=0.1, block_cols=bc,
+                                                    block_rows=100, cg_iters=300, device=dev)
+        gd, _ = streaming.gblup_from_bed(files["complete"], y, lam=0.1, block_cols=bc, device=dev)
+        gap = float(np.abs(gp - gd.cpu().numpy()).max())
+        try:
+            streaming.gblup_from_bed_pieces(files["missing"], y, block_cols=bc, device=dev)
+            rejected = False
+        except ValueError as err:
+            rejected = "missing" in str(err)
+        print(f"OOC (a) {n}x{p}: read_bed exact (complete, 1 % missing); grm_from_bed card vs "
+              f"gram_dosage {err_mem:.3g}, vs device='cpu' complete {errs['complete']:.3g} missing "
+              f"{errs['missing']:.3g} (over max|K|); unpack_bed_payload bit-equal on "
+              f"{len(unpack_ok)} shards; pieces CG (300 it., block_rows=100) vs dense max|Δ|="
+              f"{gap:.3g} resid={resid:.3g}; missing calls rejected={rejected}")
+        check(resid < 1e-3 and gap <= 2e-3, "gblup_from_bed_pieces vs gblup_from_bed")
+        check(rejected, "gblup_from_bed_pieces rejects missing calls")
+
+        # -- (b) the diskstream cell -------------------------------------------------
+        n, p, bc = disk
+        prefix = Path(tempfile.gettempdir()) / f"gbm_disk_panel_{n}x{p}"
+        expect_size = 3 + (n + 3) // 4 * p
+        bed = prefix.with_suffix(".bed")
+        if not (bed.is_file() and bed.stat().st_size == expect_size):
+            t0 = time.perf_counter()
+            write_random_bed(prefix, n, p)
+            print(f"OOC (b) wrote {bed} ({expect_size / 1e9:.2f} GB) in "
+                  f"{time.perf_counter() - t0:.1f} s (host)")
+        st = streaming.BedShardStreamer(prefix, block_cols=bc)
+        t0 = time.perf_counter()
+        host_bytes = sum(P.nbytes for _, _, P in st.iter_payload())
+        t_host = time.perf_counter() - t0
+        if cuda:
+            h2d_line(card)
+        y = np.random.default_rng(0).normal(size=n).astype(np.float32)
+        timer = StageTimer()
+        reset_peak()
+        t0 = time.perf_counter()
+        gp, resid = streaming.gblup_from_bed_pieces(prefix, y, lam=0.1, block_cols=bc,
+                                                    cg_iters=OOC_CG_ITERS, device=dev, timer=timer)
+        t_pieces = time.perf_counter() - t0
+        peak_p = peak_gib()
+        timer_d = StageTimer()
+        reset_peak()
+        t0 = time.perf_counter()
+        gd, Kd = streaming.gblup_from_bed(prefix, y, lam=0.1, block_cols=bc, device=dev,
+                                          timer=timer_d)
+        gd = gd.cpu().numpy()
+        t_dense = time.perf_counter() - t0
+        peak_d = peak_gib()
+        del Kd
+        gap = float(np.abs(gp - gd).max())
+        tol = resid + OOC_GEBV_REL * float(np.abs(gd).max())
+        print(f"OOC (b) diskstream {n}x{p} block_cols={bc} ({len(st)} shards, {host_bytes / 1e9:.2f} GB "
+              f"packed): host-only pass (disk + prefetch) {t_host:.3f} s "
+              f"({host_bytes / 1e9 / t_host:.2f} GB/s) {card}")
+        print(f"OOC (b) diskstream pieces (packed h2d, card unpack, torch._int_mm pieces, "
+              f"{OOC_CG_ITERS} CG it.): {t_pieces:.3f} s, {n * p / t_pieces:.6g} SNPs/s "
+              f"({stages(timer)}), resid={resid:.3g}, peak {peak_p:.2f} GiB {card}")
+        print(f"OOC (b) diskstream dense (host int8 decode, K1 per shard, Cholesky): {t_dense:.3f} s, "
+              f"{n * p / t_dense:.6g} SNPs/s ({stages(timer_d)}), peak {peak_d:.2f} GiB; "
+              f"GEBV max|Δ| pieces vs dense {gap:.3g} (tolerance {tol:.3g}) {card}")
+        check(bool(np.all(np.isfinite(gp))) and bool(np.all(np.isfinite(gd))),
+              "diskstream GEBVs finite")
+        check(gap <= tol, "diskstream pieces vs dense GEBVs within the CG residual")
+        # One shard resident on the device: what each path's device work costs a shard.
+        a, b, payload = next(iter(st.iter_payload()))
+        payload = torch.from_numpy(payload).to(dev)
+        bounds = pc.make_bounds(n, 4096)
+        shard_ms = {}
+        if cuda:
+            pieces = pc.zero_pieces(n, bounds, device=dev)
+            miss = torch.zeros((), dtype=torch.int64, device=dev)
+            shard_ms["pieces"] = cuda_ms(
+                lambda: pc.accumulate_bed_payload(pieces, payload, miss, bounds=bounds, n=n), reps=2)
+            Dsh = pc.unpack_bed_payload(payload, n)[0]
+            shard_ms["unpack"] = cuda_ms(lambda: pc.unpack_bed_payload(payload, n), reps=3)
+            del pieces
+        else:
+            Dsh = pc.unpack_bed_payload(payload, n)[0]
+
+        # -- (c) the northstar cell ----------------------------------------------------
+        n, p, S = north
+        cols = p // S
+        gen = torch.Generator(device=dev)
+
+        def shard(k):
+            gen.manual_seed(OOC_SEED * 1000 + k)
+            return torch.randint(0, 3, (cols, n), dtype=torch.int8, device=dev, generator=gen)
+
+        gen.manual_seed(OOC_SEED)
+        yn = torch.randn(n, device=dev, generator=gen)
+        bounds = pc.make_bounds(n, 4096)
+        timer = StageTimer()
+        reset_peak()
+        t0 = time.perf_counter()
+        with timer.stage("syrk"):
+            pieces = pc.zero_pieces(n, bounds, device=dev)
+            for k in range(S):
+                pc.accumulate_dosage_shard(pieces, shard(k), bounds=bounds)
+            sync()
+        with timer.stage("center"):
+            pieces = pc.center_scale_pieces(pieces, 4.0, bounds=bounds)
+            sync()
+        with timer.stage("cg"):
+            gp, resid = pc.cg_solve_pieces(pieces, yn, 1e-3, bounds=bounds, iters=OOC_CG_ITERS)
+            resid = float(resid)
+        t_pieces = time.perf_counter() - t0
+        peak_p = peak_gib()
+        del pieces
+        timer_d = StageTimer()
+        reset_peak()
+        t0 = time.perf_counter()
+        with timer_d.stage("k1"):
+            acc = None
+            for k in range(S):
+                L = gram_tri_snp_major(shard(k), 2, device=dev)
+                acc = L if acc is None else acc.add_(L)
+                del L
+            sync()
+        with timer_d.stage("center"):
+            Kl = acc.to(torch.float32).div_(4.0)
+            del acc
+            Kl = _center_gram_lower(Kl)
+            lam = 1e-3 * float(Kl.diagonal().mean())
+        with timer_d.stage("cholesky"):
+            gd = gblup_solve_lower(Kl, yn, lam)
+            sync()
+        t_dense = time.perf_counter() - t0
+        peak_d = peak_gib()
+        del Kl
+        gp, gd = gp.cpu().numpy(), gd.cpu().numpy()
+        gap = float(np.abs(gp - gd).max())
+        tol = resid + OOC_GEBV_REL * float(np.abs(gd).max())
+        print(f"OOC (c) northstar {n}x{p} ({S} int8 shards of {cols} synthesized on the card), "
+              f"pieces (4096 wide, torch._int_mm) + center + {OOC_CG_ITERS} CG it. lam_rel=1e-3: "
+              f"{t_pieces:.3f} s, {n * p / t_pieces:.6g} SNPs/s ({stages(timer)}), resid={resid:.3g}, "
+              f"peak {peak_p:.2f} GiB {card}")
+        print(f"OOC (c) northstar dense (K1 per shard, int32 triangles added, scaled and centered "
+              f"once, Cholesky): {t_dense:.3f} s, {n * p / t_dense:.6g} SNPs/s ({stages(timer_d)}), "
+              f"peak {peak_d:.2f} GiB; GEBV max|Δ| pieces vs dense {gap:.3g} (tolerance "
+              f"{tol:.3g}) {card}")
+        check(bool(np.all(np.isfinite(gp))) and bool(np.all(np.isfinite(gd))), "northstar GEBVs finite")
+        check(gap <= tol, "northstar pieces vs dense GEBVs within the CG residual")
+
+        # -- (d) the command line on the card ---------------------------------------------
+        d = work / "cli"
+        d.mkdir()
+        gbm.write_bed(called, d / "panel")
+        gbm.write_phenomes_tsv(phenomes, d / "pheno.tsv")
+        geno, pheno = str(d / "panel.bed"), str(d / "pheno.tsv")
+        k1 = gbm.LAUNCHES["gram_tri_int8"]
+        t0 = time.perf_counter()
+        check(cli(["fit", "--geno", geno, "--pheno", pheno, "--model", "gblup",
+                   "--out", str(d / "gblup.npz"), "--device", str(dev)]) == 0, "CLI fit gblup")
+        check(cli(["predict", "--geno", geno, "--fit", str(d / "gblup.npz"),
+                   "--out", str(d / "gebv.tsv"), "--device", str(dev)]) == 0, "CLI predict")
+        t_cli = time.perf_counter() - t0
+        check(gbm.LAUNCHES["gram_tri_int8"] > k1 or not cuda, "CLI fit gblup launched K1")
+        via_cli = np.loadtxt(d / "gebv.tsv", delimiter="\t", skiprows=1, usecols=2)
+        gb = gbm.read_bed(d / "panel")
+        fit = gbm.gblup(gb, phenomes, idx_trait=0, device=dev)
+        api = gbm.predict(fit, gb, list(range(gb.n)), device=dev)
+        err_cli = float(np.abs(via_cli - api).max() / np.abs(api).max())
+        k2 = gbm.LAUNCHES["gram_tri_float"]
+        check(cli(["fit", "--geno", geno, "--pheno", pheno, "--out", str(d / "ridge.npz"),
+                   "--device", str(dev)]) == 0, "CLI fit (ridge)")
+        check(gbm.LAUNCHES["gram_tri_float"] > k2 or not cuda, "CLI fit ridge launched K2")
+        check(cli(["grm", "--geno", geno, "--out", str(d / "grm.npy"), "--device", str(dev)]) == 0,
+              "CLI grm")
+        check(cli(["grm", "--geno", geno, "--streaming", "--block-cols", str(cli_block_cols),
+                   "--out", str(d / "grm_stream.npy"), "--device", str(dev)]) == 0,
+              "CLI grm --streaming")
+        Km, Ks = np.load(d / "grm.npy"), np.load(d / "grm_stream.npy")
+        s = np.trace(Km) / np.trace(Ks)  # VanRaden-scaled in memory, raw centered when streamed
+        err_grm = float(np.abs(Km - Ks * s).max() / np.abs(Km).max())
+        print(f"OOC (d) CLI on {gb.n}x{gb.p} (phase 6's called panel as .bed): fit gblup + predict "
+              f"{t_cli:.3f} s, max|Δ GEBV| vs the Python API {err_cli:.3g} (over max|GEBV|); "
+              f"fit ridge ran; grm --streaming (block_cols={cli_block_cols}) vs in memory "
+              f"{err_grm:.3g} (over max|K|) {card}")
+        check(err_cli <= CLI_TOL and err_grm <= CLI_TOL, "CLI against the Python API")
+    finally:
+        tmp.cleanup()
+    launched = dict(gbm.LAUNCHES)
+    print(f"launches in phase 15: {launched}")
+    if cuda:
+        check(launched["gram_tri_int8"] > 0 and launched["gram_tri_float"] > 0,
+              "phase 15 launched K1 and K2")
+
+    # K1 at the cells' shard shapes, after the counts were read: the snp-major
+    # shard through `gram_tri_snp_major` (the transposing copy included) and
+    # the kernel alone on the padded operand, beside the bound and
+    # torch._int_mm of the same operand.
+    k1_times = []
+    if cuda:
+        shards = [("diskstream", Dsh), ("northstar", shard(0))]
+        for label, F in shards:
+            cols, n = F.shape
+            Dp = entry_major(F)
+            pp = Dp.shape[1]
+            with_copy = cuda_ms(lambda: gram_tri_snp_major(F, 2, device=dev), reps=3)
+            ms = cuda_ms(lambda: gram_tri_int8(Dp, 2), reps=3)
+            lib_ms = cuda_ms(lambda: torch._int_mm(Dp, Dp.t()), reps=2)
+            bound_ms, bound_by = gram_bound(n, pp, "int8", 1)
+            k1_times.append(dict(cell=label, shape=f"{n}x{pp}", ms=ms, with_transpose_ms=with_copy,
+                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            print(f"K1 {n}x{pp} ({label} shard of {cols} markers, padded): {ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}; {bound_ms / ms:.1%} of bound); with the "
+                  f"transposing copy {with_copy:.3f} ms; torch._int_mm {lib_ms:.3f} ms "
+                  + (f"; pieces path per shard {shard_ms['pieces']:.3f} ms (unpack "
+                     f"{shard_ms['unpack']:.3f} ms)" if label == "diskstream" else "") + f" {card}")
+            del Dp
+        del shards
+        torch.cuda.empty_cache()
+    return launched, k1_times
+
+
 def main() -> int:
     import torch
 
@@ -1645,6 +2022,12 @@ def main() -> int:
           f"(the pair scan runs torch products, no hand kernel) {card}")
     hold_launched_shapes(held, gen, "phase 14")
 
+    # -- 15. out-of-core and the command line, counters from zero --------------------
+    t0 = time.perf_counter()
+    ooc_launches, ooc_k1 = outofcore_phase(gbm, dev, card, called, phenomes)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s; launches in phase 15: {ooc_launches} {card}")
+    hold_launched_shapes(held, gen, "phase 15")
+
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
     # The profiler slows the host, so the device time is also set against
@@ -1682,10 +2065,11 @@ def main() -> int:
     for name in ("gram_tri_int8", "gram_tri_float"):  # every shape held against the plain version
         records[name]["held_shapes"] = [f"{dt} {n}x{p}" for dt, n, p in sorted(held[name])]
     records["gibbs_group"]["fold_launches"] = fold_launches["gibbs_group"] + epi_launches["gibbs_group"]
-    kernels = [  # launches: phases 5-9, 10, 11, 12, 13 and 14, each counted from zero
+    records["gram_tri_int8"]["phase15_shards"] = ooc_k1
+    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14 and 15, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
-                                           fold_launches, epi_launches)),
+                                           fold_launches, epi_launches, ooc_launches)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]

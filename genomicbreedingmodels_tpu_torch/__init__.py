@@ -19,8 +19,13 @@ grouped Gibbs block update K3 as a hand-written CUDA kernel; the linear zoo
 eight Bayesian names of `cvbulk_batched`), whose indicator models run K3 for
 every fold in one launch per block; and the epistasis feature engine (the
 six endofunctions, `transform1`, `transform2`, `epistasisfeatures`,
-`reconstitutefeatures`, `parse_feature_name`). Every public entry point takes `device=`
-(default "cuda"); `device="cpu"` runs the kernels' plain PyTorch versions.
+`reconstitutefeatures`, `parse_feature_name`); the out-of-core path (the
+TSV / PLINK .bed / VCF codecs with their native C++ library,
+`BedShardStreamer`, `grm_from_bed` and `gblup_from_bed`, whose complete .bed
+shards reach K1, and the trapezoid-pieces CG of `ops/pieces.py`), the
+plots and the command line (`python -m genomicbreedingmodels_tpu_torch`).
+Every public entry point takes `device=` (default "cuda"); `device="cpu"`
+runs the kernels' plain PyTorch versions.
 """
 
 from .core.structs import (
@@ -86,6 +91,17 @@ from .features.transform import (
     transform1,
     transform2,
 )
+from .io import (
+    read_bed,
+    read_genomes_tsv,
+    read_phenomes_tsv,
+    read_vcf,
+    write_bed,
+    write_genomes_tsv,
+    write_phenomes_tsv,
+)
+from .streaming import BedShardStreamer, gblup_from_bed, grm_from_bed
+from .plots import manhattan_data, plot_cv, plot_manhattan
 from .utils.devcache import clear_device_caches
 from .kernels._build import LAUNCHES, reset_launches
 
@@ -162,6 +178,19 @@ __all__ = [
     "epistasisfeatures",
     "reconstitutefeatures",
     "parse_feature_name",
+    "read_genomes_tsv",
+    "write_genomes_tsv",
+    "read_phenomes_tsv",
+    "write_phenomes_tsv",
+    "read_bed",
+    "write_bed",
+    "read_vcf",
+    "BedShardStreamer",
+    "grm_from_bed",
+    "gblup_from_bed",
+    "manhattan_data",
+    "plot_manhattan",
+    "plot_cv",
     "clear_device_caches",
     "LAUNCHES",
     "reset_launches",

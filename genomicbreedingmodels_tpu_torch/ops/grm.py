@@ -8,7 +8,13 @@ computed; the symmetric matrix, where a caller needs one, is mirrored here.
 
 Centering is never done by materialising X - 1μᵀ. Column-centering X is the
 projection P = I - 11ᵀ/n on the left, so the centered Gram is K = P (X Xᵀ) P:
-plain double-centering of the raw Gram in f32, an O(n²) epilogue.
+double-centering of the raw Gram, an O(n²) epilogue, with float64 row means
+and the correction ordered so that float32 leaves no bias along the ones
+vector (`centering_terms`).
+
+SNP-major shards (the .bed order, (markers, n)) reach K1 through
+`gram_tri_snp_major`: one transposing copy into a buffer K1 reads as it is
+(`entry_major`), for the out-of-core GRM (streaming.py) and the pieces path.
 
 Dosage panels: allele frequencies on the grid {0, 1/k, ..., 1} encode
 exactly as int8 dosages d = k·x (`encode_dosage`), and their raw Gram
@@ -30,12 +36,16 @@ from ..kernels.gram_tri import gram_tri_float, gram_tri_int8
 __all__ = [
     "center_gram",
     "center_gram_lower",
+    "centering_terms",
     "encode_dosage",
+    "entry_major",
     "gram_auto",
     "gram_centered",
     "gram_dosage",
     "gram_dosage_lower",
+    "gram_dosage_snp_major",
     "gram_panel",
+    "gram_tri_snp_major",
 ]
 
 
@@ -44,25 +54,55 @@ def _mirror(L: torch.Tensor) -> torch.Tensor:
     return L + torch.tril(L, -1).T
 
 
+def centering_terms(rm: torch.Tensor, dtype: torch.dtype):
+    """(a, b, c) in `dtype` from the float64 row means `rm` of a raw Gram, such
+    that the centered entry G_ij - (rm_i + rm_j - gm) is ((G_ij - a_i) - b_j) - c_i.
+
+    a = rm rounded, c = rm - a (what a misses), b = rm - gm, each rounded once.
+    A float32 rm_i ~ 1e5 carries a rounding of ~4e-3, the same along its whole
+    row, and a float32 gm a rounding of ~1e-2 on every entry: at n = 50,000,
+    subtracting rm_i + rm_j - gm formed in float32 left the null direction
+    (the ones vector) of the centered Gram at -192 instead of 0, below
+    λ = 1e-3·mean(diag K) = 83, so CG and Cholesky of K + λI diverged.
+    G_ij - a_i is exact where the two are within a factor 2 (raw Gram entries
+    beside their row mean), and b and c, small, round on their own scale, so
+    no such bias is left.
+    """
+    gm = rm.mean()
+    a = rm.to(dtype)
+    return a, (rm - gm).to(dtype), (rm - a.to(rm.dtype)).to(dtype)
+
+
+def _center(X: torch.Tensor, rm: torch.Tensor) -> torch.Tensor:
+    """X - (rm_i + rm_j - gm) as `centering_terms` orders it, in a new tensor."""
+    a, b, c = centering_terms(rm, X.dtype)
+    H = X - a[:, None]
+    H -= b[None, :]
+    H -= c[:, None]
+    return H
+
+
 def center_gram(G: torch.Tensor) -> torch.Tensor:
     """Double-center a raw Gram G = X Xᵀ into P G P, P = I - 11ᵀ/n.
 
-    Exact algebra in f32 on the accumulated Gram; the result is made exactly
-    symmetric by mirroring its lower triangle.
+    Row means in float64, the correction as `_center` applies it; the result
+    is made exactly symmetric by mirroring its lower triangle.
     """
-    rm = G.mean(dim=1)
-    gm = rm.mean()
-    H = G - (rm[:, None] + rm[None, :] - gm)
+    H = _center(G, G.sum(dim=1, dtype=torch.float64) / G.shape[0])
     return torch.tril(H) + torch.tril(H, -1).T
+
+
+def _row_means_lower(L: torch.Tensor) -> torch.Tensor:
+    """Float64 row means of the symmetric Gram whose lower triangle is L
+    (strict upper zero): rowsum + colsum - diag."""
+    return (L.sum(dim=1, dtype=torch.float64) + L.sum(dim=0, dtype=torch.float64)
+            - L.diagonal().to(torch.float64)) / L.shape[0]
 
 
 def _center_gram_lower(L: torch.Tensor) -> torch.Tensor:
     """`center_gram_lower` without the precondition check (no host sync), for
     producers that guarantee a zero strict upper triangle (K1, K2)."""
-    n = L.shape[0]
-    rm = (L.sum(dim=1) + L.sum(dim=0) - L.diagonal()) / n
-    gm = rm.mean()
-    return L - (rm[:, None] + rm[None, :] - gm)
+    return _center(L, _row_means_lower(L))
 
 
 def center_gram_lower(L: torch.Tensor) -> torch.Tensor:
@@ -171,3 +211,45 @@ def gram_auto(X, ploidy: int = 2, center: bool = True, device="cuda") -> torch.T
         if D is not None:
             return gram_dosage(D, ploidy=ploidy, center=center, device=device)
     return gram_panel(X, center=center, device=device)
+
+
+def entry_major(F: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """An SNP-major (cols, n) int8 shard as an entry-major (rows, cols') panel
+    in ONE copy: the transpose writes straight into a buffer whose row is
+    already a multiple of 16 bytes (K1's TMA wants it, `torch._int_mm` a
+    multiple of 8; zero columns add nothing to a Gram) and which has `rows`
+    >= n rows, the rows past n zero. K1 then reads the buffer as it is
+    (`tma_operand` copies nothing), where a plain `F.T.contiguous()` of an
+    unaligned shard would be copied a second time."""
+    cols, n = F.shape
+    rows = n if rows is None else rows
+    cp = -(-cols // 16) * 16
+    D = torch.empty((rows, cp), dtype=F.dtype, device=F.device)
+    D[:n, :cols].copy_(F.T)
+    D[n:].zero_()
+    D[:n, cols:].zero_()
+    return D
+
+
+def gram_tri_snp_major(F, ploidy: int = 2, device="cuda") -> torch.Tensor:
+    """Raw lower-triangular int32 Gram D·Dᵀ (strict upper triangle zero) of an
+    SNP-major (cols, n) int8 dosage shard, D = Fᵀ, via K1 on the card. The
+    unscaled, uncentered form that `streaming.grm_from_bed` adds up over
+    shards, exactly, before it scales and centers once."""
+    F = _dosage_tensor(F, device, "gram_dosage_snp_major")
+    D = entry_major(F)
+    return gram_tri_int8(D, ploidy)
+
+
+def gram_dosage_snp_major(F, ploidy: int = 2, center: bool = True, device="cuda") -> torch.Tensor:
+    """`gram_dosage` for an SNP-major (cols, n) int8 dosage shard (the .bed
+    native order, as `BedShardStreamer.iter_dosage(snp_major=True)` yields it).
+
+    The shard is transposed on the device into a K1-ready buffer (one copy,
+    `entry_major`), its raw Gram accumulates exactly in int32 (K1), then
+    scales by 1/ploidy² and double-centers (or not) in f32. The same Gram as
+    `gram_dosage(F.T)`.
+    """
+    L = gram_tri_snp_major(F, ploidy, device)
+    G = _mirror(L).to(torch.float32) / float(ploidy * ploidy)
+    return center_gram(G) if center else G

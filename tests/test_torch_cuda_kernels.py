@@ -1,4 +1,6 @@
-"""K1/K2/K3 CUDA kernels against their plain versions, on the card only.
+"""K1/K2/K3 CUDA kernels against their plain versions, and the paths that
+launch them (GBLUP, GWAS, the fold chains, the out-of-core GRM with its
+pinned-buffer uploads and the pieces CG), on the card only.
 
 The kernels have no CPU mode, so these tests carry the `cuda` marker and skip
 where there is no CUDA device. This file imports neither jax nor the JAX
@@ -469,3 +471,124 @@ def test_ols_folds_on_card_match_f64_lstsq(cuda_device):
         ref = X[va] @ np.linalg.lstsq(X[tr], y[tr], rcond=None)[0]
         assert np.abs(a.y_pred - ref).max() <= 1e-4 * sd
         assert np.abs(a.y_pred - b.y_pred).max() <= 1e-3 * sd
+
+
+def _write_bed_trio(prefix, n, p, seed, missing=0.0):
+    """A .bed trio of {0, ½, 1} frequencies (a `missing` share of NaN calls)
+    written by the port's `write_bed`; returns the frequencies."""
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch import Genomes, write_bed
+
+    rng = np.random.default_rng(seed)
+    F = rng.choice([0.0, 0.5, 1.0], size=(n, p))
+    F[rng.random((n, p)) < missing] = np.nan
+    write_bed(Genomes(entries=np.array([f"e{i}" for i in range(n)], dtype=object),
+                      populations=np.array(["pop1"] * n, dtype=object),
+                      loci_alleles=np.array([f"chr1\t{j + 1}\tA|T\tA" for j in range(p)], dtype=object),
+                      allele_frequencies=F), prefix)
+    return F
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [0.0, 0.01])
+def test_grm_from_bed_on_card_matches_cpu(cuda_device, tmp_path, missing):
+    """Complete shards through K1 (SNP-major, transposed on the card), shards
+    with missing calls through K2: within 1e-5·max|K| of device="cpu"."""
+    from genomicbreedingmodels_tpu_torch.streaming import grm_from_bed
+
+    _write_bed_trio(tmp_path / "p", 300, 1001, seed=1, missing=missing)
+    before = dict(gram_tri.LAUNCHES)
+    K = grm_from_bed(tmp_path / "p", block_cols=250, device=cuda_device).cpu()
+    R = grm_from_bed(tmp_path / "p", block_cols=250, device="cpu")
+    assert float((K - R).abs().max()) <= 1e-5 * float(R.abs().max())
+    launched = {k: gram_tri.LAUNCHES[k] - before[k] for k in before}
+    if missing:
+        assert launched["gram_tri_float"] > 0
+    else:
+        assert launched == {"gram_tri_int8": 5, "gram_tri_float": 0, "gibbs_group": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 60, 301])
+def test_unpack_bed_payload_on_card_bit_exact(cuda_device, tmp_path, n):
+    """The card's unpack equals the host int8 decode (missing as 0), with the
+    same missing count; n % 4 != 0 checks the last byte's padding."""
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch.ops.pieces import unpack_bed_payload
+    from genomicbreedingmodels_tpu_torch.streaming import BedShardStreamer
+
+    F = _write_bed_trio(tmp_path / "p", n, 77, seed=2, missing=0.02)
+    _, _, payload = next(iter(BedShardStreamer(tmp_path / "p", block_cols=77).iter_payload()))
+    D, miss = unpack_bed_payload(torch.from_numpy(payload).to(cuda_device), n)
+    expect = np.nan_to_num(F.T * 2, nan=0.0).astype(np.int8)
+    assert torch.equal(D.cpu(), torch.from_numpy(expect))
+    assert int(miss) == int(np.isnan(F).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [31, 250, 1001])
+def test_gram_dosage_snp_major_on_card_bit_equal(cuda_device, cols):
+    """A shard width that is not a multiple of 16: one transposing copy into a
+    padded buffer, K1 bit-equal to its plain version on the entry-major shard."""
+    from genomicbreedingmodels_tpu_torch.ops.grm import gram_dosage, gram_tri_snp_major
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    F = torch.randint(0, 3, (cols, 517), dtype=torch.int8, device=cuda_device, generator=g)
+    L = gram_tri_snp_major(F, 2, device=cuda_device)
+    assert torch.equal(L, gram_tri.gram_tri_int8_plain(F.T.contiguous(), 2))
+    assert ("int8", 517, -(-cols // 16) * 16) in _build.LAUNCH_SHAPES["gram_tri_int8"]
+    from genomicbreedingmodels_tpu_torch.ops.grm import gram_dosage_snp_major
+
+    assert torch.equal(gram_dosage_snp_major(F, device=cuda_device),
+                       gram_dosage(F.T.contiguous(), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ahead", ["1", "0"])
+def test_pinned_ring_reuses_buffers_on_card(cuda_device, monkeypatch, ahead):
+    """More shards than pinned buffers, each consumed by a kernel on the
+    caller's stream while later copies run: every shard arrives intact after
+    its buffer was reused (a missing stream wait or an early refill would
+    show as a wrong sum), and the inline mode yields the same."""
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch.streaming import _iter_device_ahead
+
+    monkeypatch.setenv("GBM_STREAM_H2D_AHEAD", ahead)
+    rng = np.random.default_rng(4)
+    shards = [(i, i + 1, rng.integers(0, 255, size=(2048, 4096), dtype=np.uint8)) for i in range(9)]
+    sums, kept = [], []
+    for k, (a, b, t) in enumerate(_iter_device_ahead(iter(shards), device=cuda_device)):
+        assert (a, b) == shards[k][:2] and t.is_cuda
+        sums.append(t.to(torch.int64).sum())  # a kernel that reads t on the caller's stream
+        kept.append(t)
+    assert len(kept) == len(shards)
+    for (_, _, host), s, t in zip(shards, sums, kept):
+        assert int(s) == int(host.astype(np.int64).sum())
+        assert torch.equal(t.cpu(), torch.from_numpy(host))
+
+
+@pytest.mark.cuda
+def test_pieces_path_on_card_matches_dense(cuda_device, tmp_path):
+    """gblup_from_bed_pieces (on-card unpack, torch._int_mm pieces with a
+    ragged last piece, CG) against the dense gblup_from_bed and against
+    device="cpu"; a panel with missing calls is rejected."""
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch.streaming import gblup_from_bed, gblup_from_bed_pieces
+
+    _write_bed_trio(tmp_path / "p", 203, 700, seed=5)
+    y = np.random.default_rng(6).normal(size=203)
+    dense, _ = gblup_from_bed(tmp_path / "p", y, lam=0.1, block_cols=256, device=cuda_device)
+    gebv, resid = gblup_from_bed_pieces(tmp_path / "p", y, lam=0.1, block_cols=256, block_rows=64,
+                                        cg_iters=300, device=cuda_device)
+    cpu, _ = gblup_from_bed_pieces(tmp_path / "p", y, lam=0.1, block_cols=256, block_rows=64,
+                                   cg_iters=300, device="cpu")
+    assert resid < 1e-3
+    np.testing.assert_allclose(gebv, dense.cpu().numpy(), atol=2e-3)
+    np.testing.assert_allclose(gebv, cpu, atol=1e-4)
+    _write_bed_trio(tmp_path / "m", 40, 90, seed=7, missing=0.01)
+    with pytest.raises(ValueError, match="missing"):
+        gblup_from_bed_pieces(tmp_path / "m", np.zeros(40), device=cuda_device)
