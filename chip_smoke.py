@@ -83,7 +83,18 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    and dense K1 + Cholesky) and `northstar` cell (50,000 x 500,000 as 8
    int8 shards made on the card: pieces CG and dense K1 + Cholesky), SNPs/s
    with stages and peak memory; `python -m genomicbreedingmodels_tpu_torch`
-   fit/predict/grm in-process on phase 6's called panel.
+   fit/predict/grm in-process on phase 6's called panel;
+16. the mesh paths (`mesh_phase`), two ranks as threads on this one card
+   over gloo (`parallel/mesh.py:run_ranks`; NCCL refuses two ranks on one
+   device, and gloo stages each collective through the host, so the times
+   are not interconnect times): `sharded_grm` int8 on phase 7's panel (K1
+   per rank) bit-equal to the single-device GRM, also over a one-rank NCCL
+   group, and f32 at 2048x32768 (K2); the marker-sharded BayesC chain on
+   phase 7's panel (K3 per rank) against phase 7's chain; `sharded_gblup_cg`
+   on phase 7's panel against a float64 dense solve; `cvbulk_batched(mesh=)`
+   (ridge, gblup, bayesc) against phases 10 and 13, the three GWAS scans
+   against phase 11, `transform2(mesh=)` against mesh=None; the
+   `dryrun_multichip` twin at 2 and 4 ranks; the parity ledger on the card.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
@@ -91,8 +102,9 @@ held against its plain version once more, on the first block of phase 7's
 chain as the chain called it. Phase 10 runs with the counters reset again
 and read after it, and every kernel must have launched there too; so do
 phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
-launch), 14 (no hand kernel on its path) and 15 (K1 and K2 must launch).
-After each of phases 5-9, 10, 11, 12, 13, 14 and 15 is read, K1 and K2
+launch), 14 (no hand kernel on its path), 15 (K1 and K2 must launch) and 16
+(K1, K2 and K3 must launch).
+After each of phases 5-9, 10, 11, 12, 13, 14, 15 and 16 is read, K1 and K2
 are held against their plain versions at every operand shape, and K3 at
 every (folds, bs, K), the phase launched them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
 panel goes through the profiler.
@@ -402,10 +414,11 @@ def cv_cell(gbm, n: int, p: int):
     return G, P
 
 
-def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
+def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
     """Phase 10, cross-validation on the card, with the launch counters set
-    to 0 just before it; returns the counts it launched and part (c)'s wall
-    seconds per model. `width` is (n, p)
+    to 0 just before it; returns the counts it launched, part (c)'s wall
+    seconds per model and part (b)'s warm CVs (phase 16 holds the mesh
+    dispatch to them). `width` is (n, p)
     of parts (b)-(c); a rehearsal on the host passes a small one.
 
     (a) at n=256, p=2048 (simulated, called to {0, ½, 1}, so gblup's GRM
@@ -485,6 +498,7 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
         check(len(cvs) == reps * folds * len(models), f"cv cell {call}: 45 CVs")
         check(all(np.isfinite(cv.metrics["cor"]) and np.all(np.isfinite(cv.y_pred)) for cv in cvs),
               f"cv cell {call}: finite metrics")
+    cell_cvs = cvs
     cors = {m: float(np.mean([cv.metrics["cor"] for cv in cvs if cv.fit.model == m])) for m in models}
     print("CV (b) mean validation cor: " + " ".join(f"{m}={c:.4f}" for m, c in cors.items())
           + f"; K2 launches {gbm.LAUNCHES['gram_tri_float'] - before['gram_tri_float']}")
@@ -533,7 +547,7 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> dict:
     check(leak_raised, "validate raises on train/validation overlap")
     print("CV (d) validate on overlapping entries: raised the leakage error")
 
-    return dict(gbm.LAUNCHES), seconds
+    return dict(gbm.LAUNCHES), seconds, cell_cvs
 
 
 def upload_line(freq, card: str) -> None:
@@ -663,9 +677,10 @@ GWAS_SCANS = ("gwasols", "gwaslmm", "gwasreml")
 GWAS_COR_MIN, GWAS_S2_TOL = 0.999, 1e-3  # card vs device="cpu": statistic cor; gwaslmm σ² relative
 
 
-def gwas_phase(gbm, dev, card, X_big=None, width=(2048, 32_768)) -> dict:
+def gwas_phase(gbm, dev, card, X_big=None, width=(2048, 32_768)) -> tuple:
     """Phase 11, GWAS, with the launch counters set to 0 just before it;
-    returns the counts it launched.
+    returns the counts it launched and (b)'s statistics per scan (phase 16
+    holds the mesh dispatch to them).
 
     (a) a 256x2048 QTL panel as tests/test_gwas.py's `gwas_data` makes it
     (simulate_genomes(seed=42) rounded to tetraploid calls, h² = 0.5 on 5
@@ -744,12 +759,14 @@ def gwas_phase(gbm, dev, card, X_big=None, width=(2048, 32_768)) -> dict:
         print(f"GWAS (b) gwasreml {n}x{p}, {call} (prep cache {'cleared' if call == 'cold' else 'hit'}): "
               f"{t:.3f} s, {p / t:.6g} markers/s ({split}) {card}")
         check(bool(np.all(np.isfinite(fit.b_hat))) and len(fit.b_hat) == p, f"gwasreml {call} finite")
+    cell_stats = {"gwasreml": fit.b_hat}
     for name in ("gwasols", "gwaslmm"):
         t0 = time.perf_counter()
         fit = getattr(gbm, name)(G, P, device=dev)
         t = time.perf_counter() - t0
         print(f"GWAS (b) {name} {n}x{p}, prep cached: {t:.3f} s, {p / t:.6g} markers/s {card}")
         check(bool(np.all(np.isfinite(fit.b_hat))) and len(fit.b_hat) == p, f"{name} finite")
+        cell_stats[name] = fit.b_hat
     if cuda:
         print(f"GWAS (b) peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"(phase 7's 4.1 GB panel resident) {card}")
@@ -761,7 +778,7 @@ def gwas_phase(gbm, dev, card, X_big=None, width=(2048, 32_768)) -> dict:
     launched = dict(gbm.LAUNCHES)
     if cuda:
         check(launched["gram_tri_float"] > 0, "phase 11 launched K2")
-    return launched
+    return launched, cell_stats
 
 
 # Phase 12's traits: a genetic correlation, heritabilities (trait 2 the noisy
@@ -985,9 +1002,10 @@ K3_FOLDS = 15  # the cv cell's 3 x 5 folds
 EPI_BOUNDARY_REL, EPI_VALUE_TOL = 1e-5, 1e-6
 
 
-def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)) -> dict:
+def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)) -> tuple:
     """Phase 13, the fold-batched Bayesian CV chains, with the launch
-    counters set to 0 just before it; returns the counts it launched.
+    counters set to 0 just before it; returns the counts it launched and
+    (b)'s warm CVs (phase 16 holds the mesh dispatch to them).
 
     (a) at n=256, p=2048 (phase 10 (a)'s called panel), 1 x 3 folds:
     pinned-variance BRR fold chains on the card, each fold's GEBVs against
@@ -1105,7 +1123,7 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
     if on_card:  # (a)'s first fold-batched block against its single launches and the plain version
         Fk, bs_k = first[0].shape[0], first[0].shape[-1]
         k3_fold_check(first[:9], first[9], f"F={Fk} bs={bs_k} K={first[9]}, the chain's first block")
-    return counts
+    return counts, cvs
 
 
 def epistasis_phase(gbm, dev, card: str, small=(256, 2048), cell=(512, 16_384),
@@ -1569,6 +1587,257 @@ def outofcore_phase(gbm, dev, card: str, called, phenomes, small=(512, 4096), di
     return launched, k1_times
 
 
+# Phase 16: the mesh paths, D thread ranks on this one card over gloo (NCCL
+# refuses two ranks on one device), so its times include the host staging of
+# every collective and are not interconnect times. Tolerances:
+# (a) K1's sharded GRM is exact (bit-equal); K2's within K2_TOL·max|K|;
+# (b) the sharded chain's cor(X b, g) within MESH_COR_GAP of phase 7's chain;
+# (c) CG after MESH_CG_ITERS iterations against a float64 dense solve:
+#     max |Δ GEBV| <= MESH_CG_REL·max|GEBV| (f32 GEMVs; the system K/p + λI
+#     has condition number ~3 here, so CG sits at f32 rounding well before);
+# (d) ridge/gblup per fold within CV_DUAL_TOL·std(y) of phase 10's CVs,
+#     bayesc pooled y_pred cor >= FOLD_CARD_CPU_COR with phase 13's;
+# (e) each scan's statistics against phase 11's: cor >= MESH_GWAS_COR[name]
+#     (tests/test_torch_gwas.py's limits) and the same argmax marker.
+MESH_COR_GAP, MESH_CG_ITERS, MESH_CG_LAM, MESH_CG_REL = 0.05, 100, 0.1, 1e-4
+MESH_GWAS_COR = {"gwasols": 0.99999, "gwaslmm": 0.9999, "gwasreml": 0.9999}
+
+
+def mesh_phase(gbm, dev, card: str, X_big, y_big, g_big, cor_single: float, cv_cvs, fold_cvs,
+               gwas_stats, cv_width=(2048, 32_768), epi_cell=(512, 16_384), ranks: int = 2,
+               dryrun=(2, 4), parity_quick: bool = False) -> dict:
+    """Phase 16, the multi-device paths (parallel/), `ranks` thread ranks
+    on `dev` (`run_ranks`, gloo), with the launch counters set to 0 just
+    before it; returns the counts it launched.
+
+    (a) `sharded_grm` on int8 dosages of phase 7's panel (K1 on each rank's
+    10,000 x 51,008 shard) against the single-device K1 GRM, bit for bit;
+    the same over a one-rank NCCL group; f32 on the cv cell's panel (K2);
+    (b) the marker-sharded BayesC chain on phase 7's panel, bs=600,
+    sequential, SWEEPS_BIG sweeps: cor(X b, g) against phase 7's chain,
+    marker-updates/s, K3 launches;
+    (c) `sharded_gblup_cg` on phase 7's panel (f32) against a float64 dense
+    solve of the same system;
+    (d) `cvbulk_batched(mesh=)` over ridge, gblup (phase 10 (b)'s call) and
+    bayesc (phase 13 (b)'s chains) at the cv cell, 3x5 folds;
+    (e) gwasols, gwaslmm and gwasreml with `mesh=` at phase 11's gwas cell;
+    (f) `transform2(mult, mesh=)` at the epistasis cell, k=1000, against
+    mesh=None: the same (row, col) pairs;
+    (g) `dryrun_multichip` at each of `dryrun` ranks, and the parity ledger
+    on the card, every row passing."""
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.entry import dryrun_multichip
+    from genomicbreedingmodels_tpu_torch.ops.grm import gram_dosage, gram_panel
+    from genomicbreedingmodels_tpu_torch.parallel import sharded
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+    from genomicbreedingmodels_tpu_torch.parity import run_parity_ledger
+
+    cuda = torch.device(dev).type == "cuda"
+    shape = (1, ranks)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def on_ranks(fn, **kw):
+        """Every rank's result and the call's wall seconds."""
+        sync()
+        t0 = time.perf_counter()
+        outs = run_ranks(fn, shape=shape, device=dev, **kw)
+        sync()
+        return outs, time.perf_counter() - t0
+
+    gbm.reset_launches()
+
+    # -- (a) the sharded GRM ---------------------------------------------------------
+    n, p = X_big.shape
+    D8 = X_big.mul(2.0).to(torch.int8)  # phase 7's dosages
+    k0 = gbm.LAUNCHES["gram_tri_int8"]
+    sync()
+    t0 = time.perf_counter()
+    ref = gram_dosage(D8, device=dev)
+    sync()
+    t_single = time.perf_counter() - t0
+    Ks, t = on_ranks(lambda m: sharded.sharded_grm(D8, m))
+    equal = [bool(torch.equal(K, ref)) for K in Ks]
+    print(f"mesh (a) sharded_grm int8 {n}x{p} over {ranks} ranks (K1 on {n}x{-(-p // ranks)} each): "
+          f"bit-equal to the single-device K1 GRM on each rank {equal}; {t:.3f} s (single device "
+          f"{t_single:.3f} s); K1 launches {gbm.LAUNCHES['gram_tri_int8'] - k0} {card}")
+    check(all(equal), "mesh (a): the int8 sharded GRM equals the single-device GRM")
+    del Ks
+    if cuda:
+        sync()
+        t0 = time.perf_counter()
+        (K1,) = run_ranks(lambda m: sharded.sharded_grm(D8, m), shape=(1, 1), device=dev,
+                          backend="nccl")
+        sync()
+        t = time.perf_counter() - t0
+        print(f"mesh (a) sharded_grm int8 {n}x{p} over one NCCL rank: bit-equal "
+              f"{bool(torch.equal(K1, ref))}; {t:.3f} s (group set-up included) {card}")
+        check(bool(torch.equal(K1, ref)), "mesh (a): the one-rank NCCL GRM equals the single-device GRM")
+        del K1
+    del D8, ref
+    G_cv, P_cv = cv_cell(gbm, *cv_width)
+    F32 = G_cv.allele_frequencies
+    ref = gram_panel(F32, device=dev)
+    Ks, t = on_ranks(lambda m: sharded.sharded_grm(F32, m))
+    scale = float(ref.abs().max())
+    errs = [float((K - ref).abs().max()) / scale for K in Ks]
+    same = all(torch.equal(K, Ks[0]) for K in Ks)
+    print(f"mesh (a) sharded_grm f32 {cv_width[0]}x{cv_width[1]} over {ranks} ranks (K2): max|Δ|/max|K| "
+          f"against the single-device GRM {max(errs):.3g}, the same bits on every rank {same}; "
+          f"{t:.3f} s {card}")
+    check(max(errs) <= K2_TOL and same, "mesh (a): the f32 sharded GRM")
+    del Ks, ref
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (b) the marker-sharded BayesC chain at size ---------------------------------------
+    k0 = gbm.LAUNCHES["gibbs_group"]
+    outs, t = on_ranks(lambda m: sharded.sharded_gibbs_regression(
+        X_big, y_big, m, axis="mp", model="BayesC", n_iter=SWEEPS_BIG, n_burnin=BURN_BIG,
+        block_size=BS_BIG, device_schedule="sequential"))
+    k3 = gbm.LAUNCHES["gibbs_group"] - k0
+    mu, b = outs[0]
+    same = all(o[0] == mu and np.array_equal(o[1], b) for o in outs)
+    bt = torch.from_numpy(b).to(X_big.device, torch.float32)
+    cor = float(torch.corrcoef(torch.stack([X_big @ bt, g_big]))[0, 1])
+    print(f"mesh (b) sharded BayesC {n}x{p} bs={BS_BIG} over {ranks} ranks, sequential, {SWEEPS_BIG} "
+          f"sweeps: {t:.3f} s, {SWEEPS_BIG * p / t:.6g} marker-updates/s; cor(X b_hat, g_true)="
+          f"{cor:.4f} (phase 7's chain {cor_single:.4f}); K3 launches {k3}; the same bits on every "
+          f"rank {same} {card}")
+    check(same and bool(np.all(np.isfinite(b))) and abs(cor - cor_single) <= MESH_COR_GAP,
+          "mesh (b): the sharded chain tracks phase 7's")
+    if cuda:
+        check(k3 == SWEEPS_BIG * (p // BS_BIG), "mesh (b): K3 once per block and sweep on each rank")
+    del bt
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (c) matrix-free CG against a float64 dense solve ------------------------------------
+    yc = (y_big - y_big.mean()).double()
+    outs, t = on_ranks(lambda m: sharded.sharded_gblup_cg(
+        X_big, y_big, MESH_CG_LAM, m, n_iter=MESH_CG_ITERS, tol=1e-7 * float(yc.norm())))
+    gebv = outs[0][1].double()
+    same = all(torch.equal(o[1], outs[0][1]) for o in outs)
+    Z = X_big.double()
+    Z -= Z.mean(0)
+    Kd = Z @ Z.T / p
+    del Z
+    Kd.diagonal().add_(MESH_CG_LAM)
+    alpha = torch.cholesky_solve(yc[:, None], torch.linalg.cholesky(Kd))[:, 0]
+    Kd.diagonal().sub_(MESH_CG_LAM)
+    gebv_ref = Kd @ alpha + y_big.mean().double()
+    del Kd
+    rel = float((gebv - gebv_ref).abs().max() / gebv_ref.abs().max())
+    print(f"mesh (c) sharded_gblup_cg {n}x{p} f32 over {ranks} ranks, lambda={MESH_CG_LAM} on K/p, "
+          f"{MESH_CG_ITERS} iterations at most: {t:.3f} s; max|Δ GEBV|/max|GEBV| against the float64 "
+          f"dense solve {rel:.3g}; the same bits on every rank {same} {card}")
+    check(same and rel <= MESH_CG_REL, "mesh (c): CG against the dense solve")
+    del gebv, gebv_ref, alpha, outs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (d) cvbulk_batched over the ranks at the cv cell ------------------------------------
+    sd = float(np.std(P_cv.phenotypes[:, 0]))
+    kw = dict(n_replications=3, n_folds=5, store_effects=False)
+    outs, t_dual = on_ranks(lambda m: gbm.cvbulk_batched(G_cv, P_cv, models=("ridge", "gblup"),
+                                                         mesh=m, **kw)[0])
+    outs_b, t_bayes = on_ranks(lambda m: gbm.cvbulk_batched(
+        G_cv, P_cv, models=("bayesc",), mesh=m, mcmc_n_iter=FOLD_SWEEPS, mcmc_n_burnin=FOLD_BURN,
+        **kw)[0])
+    parts = []
+    for model, mine, ref_cvs in (("ridge", outs, cv_cvs), ("gblup", outs, cv_cvs),
+                                 ("bayesc", outs_b, fold_cvs)):
+        ref_m = [c for c in ref_cvs if c.fit.model == model]
+        for rank_cvs in mine:
+            got = [c for c in rank_cvs if c.fit.model == model]
+            check(keys(got) == keys(ref_m) and len(got) == 15, f"mesh (d) {model}: the same 15 CVs")
+        got = [c for c in mine[0] if c.fit.model == model]
+        same = all(np.array_equal(a.y_pred, b.y_pred) for rank_cvs in mine[1:]
+                   for a, b in zip(got, [c for c in rank_cvs if c.fit.model == model]))
+        dmax = max(float(np.abs(a.y_pred - b.y_pred).max()) for a, b in zip(got, ref_m)) / sd
+        cor = float(np.corrcoef(np.concatenate([a.y_pred for a in got]),
+                                np.concatenate([b.y_pred for b in ref_m]))[0, 1])
+        bits = all(np.array_equal(a.y_pred, b.y_pred) for a, b in zip(got, ref_m))
+        parts.append(f"{model} max|Δ y_pred|/sd={dmax:.3g} pooled cor={cor:.6f} bit-equal={bits}")
+        check(same, f"mesh (d) {model}: the same bits on every rank")
+        if model == "bayesc":
+            check(cor >= FOLD_CARD_CPU_COR, "mesh (d) bayesc against phase 13")
+        else:
+            check(dmax <= CV_DUAL_TOL, f"mesh (d) {model} against phase 10")
+    print(f"mesh (d) cvbulk_batched {cv_width[0]}x{cv_width[1]} 3x5 folds over {ranks} ranks against "
+          f"mesh=None: " + "; ".join(parts) + f"; ridge+gblup {t_dual:.3f} s, bayesc ({FOLD_SWEEPS} "
+          f"sweeps) {t_bayes:.3f} s {card}")
+    del outs, outs_b, G_cv, P_cv, F32
+
+    # -- (e) the GWAS scans over the ranks at the gwas cell ------------------------------------
+    from genomicbreedingmodels_tpu_torch.models import gwas as gwas_mod
+
+    ng, pg = cv_width
+    rng = np.random.default_rng(3)  # phase 11 (b)'s panel and trait
+    freq = rng.integers(0, 3, size=(ng, pg)).astype(np.float64) / 2.0
+    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(ng)]),
+                    populations=np.array(["pop_1"] * ng),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(pg)]),
+                    allele_frequencies=freq)
+    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                     phenotypes=rng.normal(size=(ng, 1)))
+    gwas_mod._PREP_CACHE.clear()
+    parts = []
+    for name in GWAS_SCANS:
+        outs, t = on_ranks(lambda m: getattr(gbm, name)(G, P, mesh=m).b_hat)
+        ref_z = gwas_stats[name]
+        same = all(np.array_equal(o, outs[0]) for o in outs)
+        cor = float(np.corrcoef(outs[0], ref_z)[0, 1])
+        top = int(np.argmax(np.abs(outs[0]))) == int(np.argmax(np.abs(ref_z)))
+        parts.append(f"{name} {t:.3f} s ({pg / t:.6g} markers/s) cor={cor:.7f} argmax equal {top}")
+        check(same and cor >= MESH_GWAS_COR[name] and top, f"mesh (e) {name} against phase 11")
+    gwas_mod._PREP_CACHE.clear()
+    print(f"mesh (e) GWAS {ng}x{pg} over {ranks} ranks (prep on each rank, the scan sharded) "
+          f"against phase 11: " + "; ".join(parts) + f" {card}")
+    del freq, G, P
+
+    # -- (f) transform2's pair rows over the ranks at the epistasis cell -----------------------
+    rng = np.random.default_rng(5)  # phase 14 (b)'s panel
+    ne, le = epi_cell
+    freq = rng.uniform(size=(ne, le))
+    G = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(ne)]),
+                    populations=np.array(["pop_1"] * ne),
+                    loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(le)]),
+                    allele_frequencies=freq)
+    yy = freq[:, :32] @ rng.normal(size=32) + rng.normal(size=ne)
+    P = gbm.Phenomes(entries=G.entries, populations=G.populations, traits=np.array(["t"]),
+                     phenotypes=yy[:, None])
+    ref = gbm.transform2(gbm.mult, G, P, n_new_features_per_transformation=1000, device=dev)
+    outs, t = on_ranks(lambda m: gbm.transform2(gbm.mult, G, P, n_new_features_per_transformation=1000,
+                                                mesh=m))
+    same = [set(map(str, o.loci_alleles)) == set(map(str, ref.loci_alleles)) for o in outs]
+    print(f"mesh (f) transform2 mult {ne}x{le} k=1000 over {ranks} ranks: {t:.3f} s, "
+          f"{le * le / t:.4g} pairs/s; the same {ref.p} pairs as mesh=None on each rank {same} {card}")
+    check(all(same) and ref.p > 0, "mesh (f): transform2 keeps mesh=None's pairs")
+    del freq, G, P, outs
+
+    # -- (g) the dry run and the parity ledger ----------------------------------------------------
+    for d in dryrun:
+        sync()
+        t0 = time.perf_counter()
+        dryrun_multichip(d, device=dev)
+        sync()
+        print(f"mesh (g) dryrun_multichip({d}) on {dev}: {time.perf_counter() - t0:.3f} s {card}")
+    t0 = time.perf_counter()
+    rows = run_parity_ledger(emit=lambda s: print(f"  parity {s}"), quick=parity_quick, device=dev)
+    print(f"mesh (g) parity ledger on {dev}: {sum(r['pass'] for r in rows)}/{len(rows)} rows pass, "
+          f"{time.perf_counter() - t0:.3f} s {card}")
+    check(all(r["pass"] for r in rows), "mesh (g): every parity row passes")
+    launched = dict(gbm.LAUNCHES)
+    if cuda:
+        check(all(launched[k] > 0 for k in launched), "phase 16 launched K1, K2 and K3")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1935,7 +2204,7 @@ def main() -> int:
     check(bool(np.all(np.isfinite(b_hat))) and bool(np.all(np.isfinite(sig_tr)))
           and np.isfinite(mu), "BayesC at size finite")
     check(cor_big >= 0.5, "BayesC at size: cor(X b_hat, g_true) >= 0.5")
-    del beta, g_true, bt  # X and y stay for the profiler pass, the script's last phase
+    del beta, bt  # X, y and g_true stay for phase 16 and the profiler pass, the script's last phase
     torch.cuda.empty_cache()
 
     # -- 8. K3 and the plain grouped draw agree along the chain ---------------------
@@ -1993,7 +2262,7 @@ def main() -> int:
 
     # -- 10. cross-validation, counters from zero -----------------------------------
     t0 = time.perf_counter()
-    cv_launches, cv_seconds = cv_phase(gbm, dev, card)
+    cv_launches, cv_seconds, cv_cell_cvs = cv_phase(gbm, dev, card)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; launches in phase 10: {cv_launches}")
     for name, count in cv_launches.items():
         check(count > 0, f"{name} launched in phase 10")
@@ -2001,7 +2270,7 @@ def main() -> int:
 
     # -- 11. GWAS and 12. multi-trait, counters from zero for each -------------------
     t0 = time.perf_counter()
-    gwas_launches = gwas_phase(gbm, dev, card, X_big=X)
+    gwas_launches, gwas_cell_stats = gwas_phase(gbm, dev, card, X_big=X)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s; launches in phase 11: {gwas_launches} {card}")
     hold_launched_shapes(held, gen, "phase 11")
     t0 = time.perf_counter()
@@ -2011,7 +2280,7 @@ def main() -> int:
 
     # -- 13. fold-batched Bayesian CV and 14. epistasis, counters from zero for each ----
     t0 = time.perf_counter()
-    fold_launches = fold_phase(gbm, dev, card, cv_seconds["bayesc"])
+    fold_launches, fold_cell_cvs = fold_phase(gbm, dev, card, cv_seconds["bayesc"])
     print(f"phase 13: {time.perf_counter() - t0:.1f} s; launches in phase 13: {fold_launches} {card}")
     check(fold_launches["gibbs_group"] > 0 and fold_launches["gram_tri_float"] > 0,
           "phase 13 launched K2 and K3")
@@ -2027,6 +2296,14 @@ def main() -> int:
     ooc_launches, ooc_k1 = outofcore_phase(gbm, dev, card, called, phenomes)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s; launches in phase 15: {ooc_launches} {card}")
     hold_launched_shapes(held, gen, "phase 15")
+
+    # -- 16. the mesh paths over thread ranks on this card, counters from zero ------------
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(gbm, dev, card, X, y, g_true, cor_big, cv_cell_cvs, fold_cell_cvs,
+                               gwas_cell_stats)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches in phase 16: {mesh_launches} {card}")
+    hold_launched_shapes(held, gen, "phase 16")
+    del g_true, cv_cell_cvs, fold_cell_cvs, gwas_cell_stats
 
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
@@ -2066,10 +2343,14 @@ def main() -> int:
         records[name]["held_shapes"] = [f"{dt} {n}x{p}" for dt, n, p in sorted(held[name])]
     records["gibbs_group"]["fold_launches"] = fold_launches["gibbs_group"] + epi_launches["gibbs_group"]
     records["gram_tri_int8"]["phase15_shards"] = ooc_k1
-    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14 and 15, each counted from zero
+    records["gram_tri_int8"]["phase16_launches"] = mesh_launches["gram_tri_int8"]
+    records["gram_tri_float"]["phase16_launches"] = mesh_launches["gram_tri_float"]
+    records["gibbs_group"]["phase16_launches"] = mesh_launches["gibbs_group"]
+    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14, 15 and 16, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
-                                           fold_launches, epi_launches, ooc_launches)),
+                                           fold_launches, epi_launches, ooc_launches,
+                                           mesh_launches)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]

@@ -30,7 +30,12 @@ GBLUP folds share one Gram matrix:
 Fold-label RNG matches `cvbulk` (uniform with replacement, seeded), so the
 fold composition of the two engines is identical for a given seed.
 
-Not ported yet: `mesh=` (ROADMAP queue A, step 11) raises NotImplementedError.
+`mesh=` (parallel/mesh.py; every rank calls with the same arguments) spreads
+each fold batch over the mesh's largest axis (the first on a tie), as the
+JAX `_solve_folds_meshed` / `_lasso_folds_meshed` do: every rank builds the
+Gram on its device, solves its contiguous share of the folds (dummy
+all-training folds pad F to a multiple of the axis size), and the folds'
+results are gathered, so every rank emits every CV.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..kernels.gram_tri import gram_tri_float
 from ..models.bayesian import gibbs_cv_folds
 from ..ops import linalg
 from ..ops.metrics import metrics
+from ..parallel.mesh import fold_share
 from ..utils.devcache import SingleSlotCache, host_fingerprint
 from ..utils.logging import StageTimer
 from .harness import _common_checks
@@ -88,8 +94,12 @@ def _gram(X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _masked_eigh(K, y, W):
     """Per fold: the training mean of y, the masked centered response, and the
     eigendecomposition of the masked Gram, all folds in one batched eigh."""
+    # Each fold's arithmetic is independent of how many folds are batched
+    # (a fold share of a mesh rank gives mesh=None's bits): row sums and row
+    # vectors times matrices, not W·y or a batched matrix times a column,
+    # which the host rounds differently for different F.
     n_w = W.sum(1)
-    mean_y = (W @ y) / n_w
+    mean_y = (W * y).sum(1) / n_w
     yc = (y[None] - mean_y[:, None]) * W
     # f32 on the card too, unlike `_eigh_device`: the ridge shift and gblup's
     # smallest ratio damp the small eigenpairs, and at the cv cell (15 x
@@ -97,7 +107,7 @@ def _masked_eigh(K, y, W):
     # (scripts/torch_cv_fold_eigh.py).
     s, U = torch.linalg.eigh(K[None] * W[:, :, None] * W[:, None, :])
     s = torch.clamp(s, min=0.0)
-    return n_w, mean_y, s, U, torch.einsum("fij,fi->fj", U, yc)
+    return n_w, mean_y, s, U, (yc[:, None, :] @ U)[:, 0]
 
 
 def _fold_path(K, W, U, Ut_y, mean_y, d):
@@ -107,6 +117,22 @@ def _fold_path(K, W, U, Ut_y, mean_y, d):
     anyway), pred = mean_y + K gamma. Returns (preds, gammas), (F, L, n)."""
     gamma = torch.einsum("fij,flj->fli", U, Ut_y[:, None, :] / d) * W[:, None, :]
     return mean_y[:, None, None] + gamma @ K, gamma
+
+
+def _sharded(fn, mesh, W):
+    """`fn(W)` over all folds of W; with a mesh of several ranks, over this
+    rank's share of them (all-training dummies pad the batch), each output
+    (numpy or tensor) gathered from every rank."""
+    if mesh is None or mesh.size == 1:
+        return fn(W)
+    F = W.shape[0]
+    axis, Fp, lo, hi = fold_share(mesh, F)
+    W = torch.cat([W, torch.ones((Fp - F, W.shape[1]), dtype=W.dtype, device=W.device)])
+    outs = []
+    for o in fn(W[lo:hi]):
+        t = mesh.allgather(torch.from_numpy(o) if isinstance(o, np.ndarray) else o, axis)[:F]
+        outs.append(t.numpy() if isinstance(o, np.ndarray) else t)
+    return tuple(outs)
 
 
 def _solve_folds(K, y, W, grid, kind: str):
@@ -135,7 +161,7 @@ def _solve_folds(K, y, W, grid, kind: str):
         res_tr = (((y[None, None, :] - preds) * W[:, None, :]) ** 2).sum(-1)
         crit = (res_tr / n_w[:, None]) / torch.clamp((1.0 - edf / n_w[:, None]) ** 2, min=1e-6)
     else:
-        wU = torch.einsum("fi,fij->fj", W, U * U)  # per-eigenpair training support
+        wU = (W[:, None, :] @ (U * U))[:, 0]  # per-eigenpair training support
         quad = torch.clamp((Ut_y[:, None, :] ** 2 / d).sum(-1), min=1e-30)
         crit = ((wU[:, None, :] * torch.log(torch.clamp(d, min=1e-30))).sum(-1)
                 + wU.sum(-1)[:, None] * torch.log(quad))
@@ -199,7 +225,8 @@ def cvbulk_batched(
     models, which run as row-masked Gibbs chains with a fold axis, one chain
     per (trait, model) covering every (replication, fold)
     (`mcmc_n_iter`/`mcmc_n_burnin` override the config chain length).
-    `mesh=` raises NotImplementedError. Returns the same (cvs, notes)
+    With `mesh`, the folds are spread over the ranks (see the module
+    docstring) on each rank's mesh device. Returns the same (cvs, notes)
     surface as `cvbulk`; each CV's fit carries the fold's chosen λ (or
     variance ratio) in `extras` (`engine` "batched-gibbs" for the chains)
     and, with `store_effects`, marker effects in `b_hat`, so `predict` works.
@@ -210,12 +237,7 @@ def cvbulk_batched(
                 f"{m!r} is not a batched CV model; choose from {BATCHED_MODELS} "
                 "(use cvbulk for the full model zoo)"
             )
-    if mesh is not None:
-        raise NotImplementedError(
-            "cvbulk_batched(mesh=...): folds across several devices are not ported yet "
-            "(ROADMAP queue A, step 11)"
-        )
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     _common_checks(genomes, phenomes, ["ridge"])
     n, p = genomes.allele_frequencies.shape
     if not (1 <= n_folds <= n):
@@ -272,7 +294,7 @@ def cvbulk_batched(
                 genomes, phi, str(trait), np.stack(w_list), np.stack(v_list), tags, models,
                 X=X, K=K, Z=Z, lambdas=lambdas, tr_scale=tr_scale,
                 store_effects=store_effects, seed=seed, mcmc_n_iter=mcmc_n_iter,
-                mcmc_n_burnin=mcmc_n_burnin, timer=timer,
+                mcmc_n_burnin=mcmc_n_burnin, timer=timer, mesh=mesh,
             )
         )
     return cvs, notes
@@ -280,14 +302,14 @@ def cvbulk_batched(
 
 def _run_models_on_masks(
     genomes, phi, trait, W, V, tags, models, *, X, K, Z, lambdas, tr_scale, store_effects,
-    seed=42, mcmc_n_iter=None, mcmc_n_burnin=None, timer=None,
+    seed=42, mcmc_n_iter=None, mcmc_n_burnin=None, timer=None, mesh=None,
 ) -> List[CV]:
     """Run every model over one batch of (train, val) mask pairs.
 
     A "fold" is ANY {0,1} training/validation mask pair, so the same
     masked-Gram / FISTA machinery serves replicated k-fold and population
     sweeps. `tags` carries the (replication, fold) strings verbatim into the
-    CV structs.
+    CV structs. `mesh` spreads the folds over its ranks (`_sharded`).
     """
     dev = K.device
     finite = np.isfinite(phi)
@@ -301,7 +323,7 @@ def _run_models_on_masks(
             with timer.stage(f"{model}_solve"):
                 mus, betas = gibbs_cv_folds(
                     X, y, W, model=_GIBBS_MODEL_KEYS[model], n_iter=mcmc_n_iter,
-                    n_burnin=mcmc_n_burnin, seed=seed, device=dev,
+                    n_burnin=mcmc_n_burnin, seed=seed, mesh=mesh, device=dev,
                 )
             with timer.stage(f"{model}_emit"):
                 # (n, F): column f is fold f's prediction for every entry
@@ -321,7 +343,8 @@ def _run_models_on_masks(
             # _solve_folds returns numpy, so the stage holds the device solve
             # AND its read-back.
             with timer.stage(f"{model}_solve"):
-                preds, gammas, crit = _solve_folds(K, y, Wt, grid, model)
+                preds, gammas, crit = _sharded(
+                    lambda Wf: _solve_folds(K, y, Wf, grid, model), mesh, Wt)
             with timer.stage(f"{model}_emit"):
                 best = np.argmin(crit, axis=1)
                 betas = None
@@ -345,7 +368,8 @@ def _run_models_on_masks(
                 lasso_np = np.logspace(np.log10(lm), np.log10(lm * 0.01), 16).astype(np.float32)
                 lasso_lams = torch.tensor(lasso_np, device=dev)
             with timer.stage("lasso_solve"):
-                preds_l, B_l, crit_l, b0_l = _lasso_folds(X, y, Wt, lasso_lams)
+                preds_l, B_l, crit_l, b0_l = _sharded(
+                    lambda Wf: _lasso_folds(X, y, Wf, lasso_lams), mesh, Wt)
             with timer.stage("lasso_emit"):
                 best_l = np.argmin(crit_l, axis=1)
                 for f, (rep, fold) in enumerate(tags):

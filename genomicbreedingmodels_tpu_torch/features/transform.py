@@ -258,14 +258,18 @@ def transform2(
     (reference src/transformation.jl:319-468), the scan on `device`. `mult`
     and `addnorm` run the chunked GEMM scan with a running top-k on the
     device and one read-back; other transforms run a block loop that
-    materializes each block's pairs. `mesh=` (the pair scan across
-    devices) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "transform2(mesh=...): the pair scan across several devices is not ported yet "
-            "(ROADMAP queue A, step 11)"
-        )
-    dev = resolve_device(device)
+    materializes each block's pairs.
+
+    With `mesh` (parallel/mesh.py; every rank calls with the same
+    arguments) and `mult`/`addnorm`, the pair matrix's rows are split over
+    the mesh's last axis (JAX `_pairs_topk_sharded`): each rank scans its
+    range of rows against the whole panel on its mesh device with its own
+    running top-k, the D·k candidates are gathered, and the merge keeps
+    the lower index on ties, as the single scan does; every rank returns
+    the same features. Other transforms run the single-device loop on the
+    rank's device."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    D = 1 if mesh is None else mesh.shape[mesh.axis_names[-1]]
     X, y, entries, populations, loci_alleles = extractxyetc(
         genomes, phenomes, idx_entries=idx_entries, idx_loci_alleles=idx_loci_alleles,
         idx_trait=idx_trait, add_intercept=False,
@@ -281,7 +285,7 @@ def transform2(
 
     if fname_dispatch in ("mult", "addnorm"):
         rc = _ROWS_PER_CHUNK
-        l_pad = int(math.ceil(l / rc) * rc)
+        l_pad = int(math.ceil(l / (D * rc)) * D * rc)
         # Repeated scans on one panel (epistasisfeatures' rounds, warm
         # benches) reuse the padded device panel (utils/devcache.py).
         fp = (host_fingerprint(X), l_pad, "t2", str(dev))
@@ -305,8 +309,14 @@ def transform2(
                 RuntimeWarning,
                 stacklevel=2,
             )
-        tv, tr, tc = _chunk_topk_scan(Xdev, Xdev, ym, okd, okd, 0, kern_name=fname_dispatch,
-                                      commutative=commutative, k=k, rows_per_chunk=rc)
+        lp = l_pad // D  # this rank's rows of the pair matrix
+        r0 = 0 if D == 1 else mesh.index(mesh.axis_names[-1]) * lp
+        tv, tr, tc = _chunk_topk_scan(Xdev[:, r0 : r0 + lp], Xdev, ym, okd[r0 : r0 + lp], okd, r0,
+                                      kern_name=fname_dispatch, commutative=commutative, k=k,
+                                      rows_per_chunk=rc)
+        if D > 1:  # rank-ordered, so equal values keep the lower rows first
+            ax = mesh.axis_names[-1]
+            tv, tr, tc = (mesh.allgather(t, ax) for t in (tv, tr, tc))
         vals = tv.cpu().numpy()
         ii_all = tr.cpu().numpy().astype(np.int64)
         jj_all = tc.cpu().numpy().astype(np.int64)

@@ -50,9 +50,12 @@ block Grams 0.5 GB.
 
 Priors follow BGLR's gaussian defaults (R2=0.5, df=5, scaled-inverse-χ²
 residual and marker variances, Beta-updated inclusion probability for Bayes
-B/C). Not ported yet: the marker-sharded chain (`axis_name`, `seq_rounds`)
-and the fold axis over a device mesh (`gibbs_cv_folds(mesh=)`), both
-ROADMAP queue A, step 11.
+B/C).
+
+Over a mesh of ranks (parallel/mesh.py): `gibbs_cv_folds(mesh=)` spreads
+the folds over the ranks, and the marker-sharded chain
+(parallel/sharded.py:sharded_gibbs_regression) runs `_gibbs_chain` on each
+rank's column shard with `shard` set (JAX `axis_name` / `seq_rounds`).
 """
 
 from __future__ import annotations
@@ -177,6 +180,16 @@ class _Panel:
     mu_cols: torch.Tensor  # (F, p_pad)
     x2: torch.Tensor  # (F, p_pad)
     C: torch.Tensor  # (n_blocks, F, bs, bs)
+
+
+@dataclass
+class _Shard:
+    """A marker-sharded chain's place on its mesh (see `_gibbs_chain`)."""
+
+    mesh: object  # parallel/mesh.py:Mesh
+    axis: str
+    seq_rounds: int  # D for the sequential schedule, 1 for the concurrent one
+    marker_gens: Sequence[torch.Generator]  # this rank's per-marker generator
 
 
 def _center_(Xp: torch.Tensor) -> torch.Tensor:
@@ -395,6 +408,8 @@ def _gibbs_chain(
     group_size: int = 0,
     pallas_groups: bool = False,
     row_mask: Optional[torch.Tensor] = None,  # (F, n) {0, 1} training rows
+    batch_hint: Optional[int] = None,
+    shard: Optional[_Shard] = None,
 ):
     """Run `n_iter` sweeps (global indices `iters`, for burn-in accounting)
     of the F = len(gens) chains from `state_in` or the initial state; returns
@@ -403,9 +418,33 @@ def _gibbs_chain(
     intercept per sweep (T, F)).
 
     One long run and N chained segments give the bit-identical chain: the
-    generators' states ride in the state tuple."""
+    generators' states ride in the state tuple.
+
+    `batch_hint` is the number of fold chains the hoist gates count (F by
+    default): a fold batch split over ranks passes the whole batch's F, so
+    every rank takes the paths, hence the arithmetic, of the unsplit batch.
+
+    `shard` runs one chain marker-sharded over a mesh axis
+    (parallel/sharded.py:sharded_gibbs_regression, JAX bayesian.py:105-167):
+    the panel is this rank's column shard, the residual r stays replicated
+    by an all-reduce of each block round's n-vector X_b·δ, and the sums over
+    markers (Σvalid, the marker-variance and π statistics, μ's centering
+    term) are all-reduced. Per-marker draws come from the rank's own
+    generator (`shard.marker_gens`, from (seed, rank), standing for the JAX
+    fold_in of the device index); the scalar draws from `gens`, the same on
+    every rank. "sequential" (`shard.seq_rounds` = D) splits each block
+    round into D turns and only rank `turn` updates its block, against the
+    residual every earlier turn left (exact Gauss-Seidel across ranks);
+    "concurrent" (1) updates every rank's block against the round-start
+    residual (block-Jacobi). Each rank's block update is its own K3 launch
+    on the indicator models."""
     X, C = panel.X, panel.C
     F, n, p_pad = X.shape
+    gens_m = gens if shard is None else shard.marker_gens
+    D = 1 if shard is None else shard.mesh.shape[shard.axis]
+
+    def psum(v):
+        return v if D == 1 else shard.mesh.allreduce(v.reshape(-1), shard.axis).view(v.shape)
     dev = X.device
     bs = block_size
     model = BAYESIAN_MODELS[model_id]
@@ -423,9 +462,10 @@ def _gibbs_chain(
     # BayesT/BayesTπ (reference src/bayes.jl:745-855): the per-marker scaled-
     # inv-χ² machinery of BayesA with the hyper-scale S pinned.
     fixed_scale = model in ("BayesT", "BayesTPi")
-    p_real = float(valid.sum())  # once per segment
+    p_real = float(psum(valid.sum()))  # once per segment
     grouped = group_size > 1 and (has_indicator or model == "BL")
-    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups, F)
+    hoist_groups, hoist_joint = _hoists(model, bs, p_pad, group_size, pallas_groups,
+                                        F if batch_hint is None else batch_hint)
     if grouped:
         K = group_size
         gpb = bs // K
@@ -442,13 +482,13 @@ def _gibbs_chain(
         normals (n_blocks, F, bs), and Gumbel draws (n_blocks, F, G, 2^K)
         or uniforms (n_blocks, F, bs) for the indicator models."""
         normals = torch.stack([torch.randn(p_pad, generator=g, device=dev).view(n_blocks, bs)
-                               for g in gens], 1)
+                               for g in gens_m], 1)
         gum = uniforms = None
         if grouped and has_indicator:
-            gum = torch.stack([_gumbel(g, (n_blocks, gpb, n_pat), dev) for g in gens], 1)
+            gum = torch.stack([_gumbel(g, (n_blocks, gpb, n_pat), dev) for g in gens_m], 1)
         elif has_indicator:
             uniforms = torch.stack([torch.rand(p_pad, generator=g, device=dev).view(n_blocks, bs)
-                                    for g in gens], 1)
+                                    for g in gens_m], 1)
         return normals, gum, uniforms
 
     def block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise):
@@ -487,14 +527,30 @@ def _gibbs_chain(
             out = _block_joint(None if tables is None else tables[blk], Cb, u, b_blk, s2_blk,
                                val_blk, normals, sig_e2)
         delta, b_new, incl = out
+        b[:, sl] = b_new
+        if D > 1:  # the caller all-reduces X_b·δ into the replicated residual
+            return incl, torch.mv(Xb[0], delta[0])
         if single:
             r[0].addmv_(Xb[0], delta[0], alpha=-1.0)
         else:
             # r −= X_b·δ as a row vector times X_bᵀ: on the host this product
             # rounds each fold alike whatever F is (X_b·δ as a column does not).
             r[:, None, :].baddbmm_(delta[:, None, :], Xb.transpose(1, 2), alpha=-1.0)
-        b[:, sl] = b_new
         return incl
+
+    def sharded_blocks(b, r, s2, sig_e2, pi_in, tables, noise):
+        """The block rounds of a marker-sharded sweep (see `shard`)."""
+        me = shard.mesh.index(shard.axis)
+        parts = []
+        for blk in range(n_blocks):
+            for turn in range(shard.seq_rounds):
+                if shard.seq_rounds == 1 or turn == me:
+                    incl_b, v = block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise)
+                    parts.append(incl_b)
+                else:  # another rank's turn: add nothing, receive its X_b·δ
+                    v = torch.zeros(n, dtype=r.dtype, device=dev)
+                r[0].sub_(psum(v))
+        return torch.cat(parts, 1)
 
     def sweep(state, it):
         b, r, s2, sig_e2, mu, pi_in, S_scale, _, acc_b, acc_mu, acc_n, z, gam = state
@@ -508,8 +564,11 @@ def _gibbs_chain(
             tables = _joint_tables(C, s2, sig_e2, valid)
         else:
             tables = None
-        incl = torch.cat([block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise)
-                          for blk in range(n_blocks)], 1) * valid
+        if D > 1:
+            incl = sharded_blocks(b, r, s2, sig_e2, pi_in, tables, noise) * valid
+        else:
+            incl = torch.cat([block_update(blk, b, r, s2, sig_e2, pi_in, tables, noise)
+                              for blk in range(n_blocks)], 1) * valid
         active = incl if has_indicator else valid.expand(F, p_pad)
 
         # 2) Intercept (JAX bayesian.py:718-720: n_eff and the mask when masked).
@@ -556,18 +615,18 @@ def _gibbs_chain(
                 # Bayesian LASSO: τ²ⱼ via inverse-Gaussian; λ² via Gamma.
                 lam2 = S_scale[:, None]
                 mu_ig = torch.sqrt(lam2 * sig / torch.clamp(b * b, min=1e-12))
-                nrm = _fold_randn(gens, (p_pad,), dev)
-                inv_tau2 = _inverse_gaussian(mu_ig, lam2, nrm * nrm, _fold_rand(gens, (p_pad,), dev))
+                nrm = _fold_randn(gens_m, (p_pad,), dev)
+                inv_tau2 = _inverse_gaussian(mu_ig, lam2, nrm * nrm, _fold_rand(gens_m, (p_pad,), dev))
                 s2 = torch.clamp(sig / torch.clamp(inv_tau2, min=1e-12), 1e-10, 1e6)
                 if has_indicator:
                     # BLπ: excluded markers refresh τ² from its prior
                     # Exp(λ²/2), not the b=0-degenerate inverse-Gaussian.
-                    u_pr = _fold_rand(gens, (p_pad,), dev).clamp_(min=1e-12)
+                    u_pr = _fold_rand(gens_m, (p_pad,), dev).clamp_(min=1e-12)
                     tau2_prior = -2.0 * torch.log(u_pr) / torch.clamp(lam2, min=1e-12)
                     s2_prior = torch.clamp(sig * tau2_prior, 1e-10, 1e6)
                     s2 = torch.where(active > 0, s2, s2_prior)
                 # λ² | τ² ~ Gamma(p + shape, Στ²/2 + rate)
-                tau2_sum = torch.where(valid > 0, s2 / sig, 0.0).sum(1)
+                tau2_sum = psum(torch.where(valid > 0, s2 / sig, 0.0).sum(1))
                 lam2 = _fold_gamma(gens, p_real + 1.1, (), dev) / (0.5 * tau2_sum + 1.1 / hyper["lam2_0"])
                 # Keep λ² in a safe f32 range: the shrinkage feedback
                 # (σ²ₑ↓ → Στ²↑ → λ²↓ → τ²↑) can otherwise underflow λ²·σ²ₑ.
@@ -575,20 +634,20 @@ def _gibbs_chain(
             else:
                 # Scaled-t (BayesA/B): σ²ⱼ | bⱼ ~ (S + bⱼ²)/χ²(df+1) when
                 # active, prior draw S/χ²(df) when excluded.
-                chis = _fold_chi2(gens, df_b + 1.0, (p_pad,), dev)
-                chis0 = _fold_chi2(gens, df_b, (p_pad,), dev)
+                chis = _fold_chi2(gens_m, df_b + 1.0, (p_pad,), dev)
+                chis0 = _fold_chi2(gens_m, df_b, (p_pad,), dev)
                 S = S_scale[:, None]
                 s2 = torch.where(active > 0, (S + b * b) / chis, S / chis0)
                 s2 = torch.clamp(s2, 1e-10, 1e6)
                 if not fixed_scale:
-                    inv_sum = torch.where(valid > 0, 1.0 / s2, 0.0).sum(1)
+                    inv_sum = psum(torch.where(valid > 0, 1.0 / s2, 0.0).sum(1))
                     S_scale = _fold_gamma(gens, p_real * df_b / 2.0 + 1.1, (), dev) / (
                         0.5 * inv_sum + 1.1 / S_b0
                     )
         else:
             # Common slab variance (BayesC / BRR).
-            ssb = torch.where(active > 0, b * b, 0.0).sum(1)
-            nb = active.sum(1)
+            ssb = psum(torch.where(active > 0, b * b, 0.0).sum(1))
+            nb = psum(active.sum(1))
             s2_common = (ssb + S_b0 * df_b) / _fold_chi2(gens, df_b + nb, (), dev)
             s2 = torch.clamp(s2_common, 1e-10, 1e6)[:, None].expand(F, p_pad).clone()
         if pinned:
@@ -596,7 +655,7 @@ def _gibbs_chain(
 
         # 5) Inclusion probability π (BayesB/C, BLπ, BayesTπ).
         if has_indicator:
-            n_in = incl.sum(1)
+            n_in = psum(incl.sum(1))
             pi0, counts = hyper["pi_in"], hyper["pi_counts"]
             g1 = _fold_gamma(gens, pi0 * counts + n_in, (), dev)
             g2 = _fold_gamma(gens, (1.0 - pi0) * counts + (p_real - n_in), (), dev)
@@ -610,9 +669,14 @@ def _gibbs_chain(
         state = (b, r, s2, sig_e2, mu, pi_in, S_scale, None, acc_b, acc_mu, acc_n, z, gam)
         return state, (sig_e2, b[:, : min(8, p_pad)].clone(), mu)
 
+    # The generators whose states ride in the state (component 7): the
+    # scalar ones, then a sharded chain's own per-marker one.
+    all_gens = list(gens) + [g for g in gens_m if all(g is not h for h in gens)]
     if state_in is not None:
-        for g, st in zip(gens, state_in[7]):
-            g.set_state(st)
+        for i, g in enumerate(all_gens):
+            # A copy, not a row view: set_state of views raced with the row
+            # iteration of another rank's thread (torch 2.13 CPU, a segfault).
+            g.set_state(state_in[7][i].clone())
         state = tuple(None if i == 7 else v.clone() for i, v in enumerate(state_in))
     else:
         state = _initial_state(y, hyper, model_id, F, p_pad, response_id, n_cats, pinned, gens,
@@ -625,13 +689,13 @@ def _gibbs_chain(
         sig_tr.append(s)
         b_tr.append(bp)
         mu_tr.append(m)
-    state = state[:7] + (torch.stack([g.get_state() for g in gens]),) + state[8:]
+    state = state[:7] + (torch.stack([g.get_state() for g in all_gens]),) + state[8:]
     acc_b, acc_mu, acc_n = state[8], state[9], state[10]
     safe_n = torch.clamp(acc_n, min=1e-12)
     b_mean = acc_b / safe_n[:, None]
     # Undo the centering reparametrization: y = mu_c + (X - mu_cols)·b
     #                                         = (mu_c - mu_cols·b) + X·b.
-    mu_out = acc_mu / safe_n - (panel.mu_cols * b_mean).sum(1)
+    mu_out = acc_mu / safe_n - psum((panel.mu_cols * b_mean).sum(1))
     traces = (torch.stack(sig_tr), torch.stack(b_tr), torch.stack(mu_tr)) if sig_tr else (
         torch.zeros((0, F), device=dev), torch.zeros((0, F, min(8, p_pad)), device=dev),
         torch.zeros((0, F), device=dev))
@@ -896,14 +960,19 @@ def gibbs_cv_folds(
 
     `X` is a host array or a tensor (n, p), uncentered. Hyperparameters
     (BGLR R2-based scalings) come once from the full panel and y rather than
-    per fold. Gaussian responses only. `mesh=` (folds over several devices)
-    is not ported yet. Returns (mu_hat (F,), b_hat (F, p)) as float64 numpy.
+    per fold. Gaussian responses only. Returns (mu_hat (F,), b_hat (F, p)) as
+    float64 numpy.
+
+    `mesh` (parallel/mesh.py, every rank calling with the same arguments)
+    spreads the folds over the mesh's largest axis (the first on a tie; a
+    ('dp', 'mp') mesh with dp = 1 must still spread them), each rank running
+    its contiguous share of the folds as one fold-batched chain on its mesh
+    device (K3 once per block and sweep for its folds). Dummy all-training
+    folds pad F to a multiple of the axis size and are dropped; folds
+    0..F-1 keep their `_fold_seed`, and every rank gates its paths on the
+    whole F, so fold f gives the bits it gives without a mesh. Every rank
+    returns every fold (JAX bayesian.py:1300-1330).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "gibbs_cv_folds(mesh=...): folds across several devices are not ported yet "
-            "(ROADMAP queue A, step 11)"
-        )
     if model not in _MODEL_IDS:
         raise ValueError(f"unknown Bayesian model {model!r}; choose from {BAYESIAN_MODELS}")
     masks = np.asarray(fold_masks, dtype=np.float32)
@@ -912,15 +981,29 @@ def gibbs_cv_folds(
         raise ValueError(f"fold_masks must be (F, n={n}); got {masks.shape}")
     if np.any(masks.sum(axis=1) < 2):
         raise ValueError("every fold needs >= 2 training rows")
-    seeds = [_fold_seed(seed, f) for f in range(masks.shape[0])]
-    return _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2,
-                        fix_sigma_e2, fix_sigma_b2, resolve_device(device))[:2]
+    F = masks.shape[0]
+    seeds = [_fold_seed(seed, f) for f in range(F)]
+    if mesh is None or mesh.size == 1:
+        dev = resolve_device(device) if mesh is None else mesh.device
+        return _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2,
+                            fix_sigma_e2, fix_sigma_b2, dev)[:2]
+    from ..parallel.mesh import fold_share
+
+    axis, Fp, lo, hi = fold_share(mesh, F)
+    masks = np.concatenate([masks, np.ones((Fp - F, n), np.float32)])
+    seeds += [_fold_seed(seed ^ 0x70AD, f) for f in range(Fp - F)]
+    mu, b = _fold_chains(X, y, masks[lo:hi], seeds[lo:hi], model, n_iter, n_burnin, block_size,
+                         r2, fix_sigma_e2, fix_sigma_b2, mesh.device, batch_hint=F)[:2]
+    mu = mesh.allgather(torch.from_numpy(mu), axis)[:F].numpy()
+    b = mesh.allgather(torch.from_numpy(b), axis)[:F].numpy()
+    return mu, b
 
 
 def _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2, fix_sigma_e2,
-                 fix_sigma_b2, dev):
+                 fix_sigma_b2, dev, batch_hint: Optional[int] = None):
     """`gibbs_cv_folds` past its checks: the chains of masks (F, n), fold f's
-    generator seeded with seeds[f]. Returns (mu (F,), b (F, p), the σ²ₑ
+    generator seeded with seeds[f], the hoist gates counting `batch_hint`
+    chains (F by default). Returns (mu (F,), b (F, p), the σ²ₑ
     trace (n_iter, F), the centered intercept's trace (n_iter, F)), float64
     numpy."""
     cfg = get_config()
@@ -960,7 +1043,7 @@ def _fold_chains(X, y, masks, seeds, model, n_iter, n_burnin, block_size, r2, fi
     mu, b, (sig, _, mu_tr) = _gibbs_chain(
         panel, torch.from_numpy(y).to(dev), valid, gens, hyper, _MODEL_IDS[model], int(n_iter),
         int(n_burnin), bs, n_blocks, pinned=pinned, group_size=group_size,
-        pallas_groups=update == "pallas", row_mask=W,
+        pallas_groups=update == "pallas", row_mask=W, batch_hint=batch_hint,
     )
     return (mu.double().cpu().numpy(), b[:, :p].double().cpu().numpy(),
             sig.double().cpu().numpy(), mu_tr.double().cpu().numpy())

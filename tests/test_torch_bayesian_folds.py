@@ -346,8 +346,14 @@ def test_hoist_gates_count_every_chain():
 
 def test_gibbs_cv_folds_checks(panel):
     X, y, masks = panel
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gt.gibbs_cv_folds(X, y, masks, mesh=object(), device=CPU)
+    # A mesh of one rank runs the folds as mesh=None does, bit for bit.
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+
+    kw = dict(model="BayesC", n_iter=12, n_burnin=4, seed=3)
+    (one,) = run_ranks(lambda m: gt.gibbs_cv_folds(X, y, masks, mesh=m, **kw), shape=(1, 1),
+                       device=CPU)
+    ref = gt.gibbs_cv_folds(X, y, masks, device=CPU, **kw)
+    assert all(np.array_equal(a, b) for a, b in zip(one, ref))
     with pytest.raises(ValueError, match="fold_masks"):
         gt.gibbs_cv_folds(X, y, masks[:, :10], device=CPU)
     with pytest.raises(ValueError, match=">= 2 training rows"):

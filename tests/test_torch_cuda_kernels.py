@@ -592,3 +592,54 @@ def test_pieces_path_on_card_matches_dense(cuda_device, tmp_path):
     _write_bed_trio(tmp_path / "m", 40, 90, seed=7, missing=0.01)
     with pytest.raises(ValueError, match="missing"):
         gblup_from_bed_pieces(tmp_path / "m", np.zeros(40), device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_sharded_grm_int8_two_thread_ranks_on_card_bit_equal(cuda_device):
+    """Two thread ranks on the card over gloo: K1 on each rank's shard, the
+    int32 triangles all-reduced, equal to the single-device GRM bit for bit."""
+    from genomicbreedingmodels_tpu_torch.ops.grm import gram_dosage
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+    from genomicbreedingmodels_tpu_torch.parallel.sharded import sharded_grm
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    D = torch.randint(0, 3, (777, 4099), dtype=torch.int8, device=cuda_device, generator=g)
+    before = gram_tri.LAUNCHES["gram_tri_int8"]
+    outs = run_ranks(lambda m: sharded_grm(D, m), shape=(1, 2), device=cuda_device)
+    assert gram_tri.LAUNCHES["gram_tri_int8"] == before + 2
+    ref = gram_dosage(D, device=cuda_device)
+    assert all(torch.equal(K, ref) for K in outs)
+
+
+@pytest.mark.cuda
+def test_sharded_gibbs_chain_with_k3_finishes_on_card(cuda_device):
+    """The marker-sharded BayesC chain over two thread ranks on one card runs
+    K3 on each rank's shard; its launches share the default stream, so two
+    launches never co-reside and the chain cannot hang on spinning scans.
+    It must finish well inside the timeout, with both ranks' bits equal."""
+    import threading
+
+    import numpy as np
+
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+    from genomicbreedingmodels_tpu_torch.parallel.sharded import sharded_gibbs_regression
+
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.random((400, 3000)), dtype=torch.float32, device=cuda_device)
+    y = rng.normal(size=400)
+    before = gibbs_group.LAUNCHES["gibbs_group"]
+    result = {}
+
+    def run():
+        result["outs"] = run_ranks(
+            lambda m: sharded_gibbs_regression(X, y, m, model="BayesC", n_iter=20, n_burnin=5,
+                                               block_size=300),
+            shape=(1, 2), device=cuda_device, timeout=120.0)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=180.0)
+    assert not t.is_alive(), "the sharded chain did not finish in 180 s"
+    (mu0, b0), (mu1, b1) = result["outs"]
+    assert mu0 == mu1 and np.array_equal(b0, b1) and np.all(np.isfinite(b0))
+    assert gibbs_group.LAUNCHES["gibbs_group"] - before == 2 * 20 * 5  # 2 ranks x 20 sweeps x 5 blocks

@@ -274,7 +274,8 @@ def test_stage_timer_threads_and_profile(tmp_path):
 def test_port_cv_path_runs_without_jax(tmp_path):
     """In a fresh interpreter where `import jax` fails, the port imports
     (without pandas too) and runs cvbulk, gwasols and gblup_multitrait_cov
-    on a tiny panel on the CPU."""
+    on a tiny panel on the CPU, then the mesh layer (`parallel/`: the sharded
+    GRM and gwasols over two thread ranks) and the quick parity ledger."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -290,6 +291,16 @@ def test_port_cv_path_runs_without_jax(tmp_path):
         trials2, _ = gt.simulate_trials(g, f_add_dom_epi=np.array([[0.4, 0.0, 0.0], [0.2, 0.0, 0.0]]), seed=2)
         fits = gt.gblup_multitrait_cov(g, gt.extract_phenomes(trials2), device="cpu")
         assert len(fits) == 2 and all(np.all(np.isfinite(f.y_pred)) for f in fits)
+        # The mesh layer and the parity ledger import and run without jax too.
+        from genomicbreedingmodels_tpu_torch.parallel import distributed, sharded
+        from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+        from genomicbreedingmodels_tpu_torch.parity import run_parity_ledger
+        assert distributed.process_local_panel_slice(60) == (0, 60)
+        Ks = run_ranks(lambda m: sharded.sharded_grm(g.allele_frequencies, m), shape=(1, 2), device="cpu")
+        assert Ks[0].shape == (30, 30) and bool((Ks[0] == Ks[1]).all())
+        zs = run_ranks(lambda m: gt.gwasols(g, p, mesh=m).b_hat, shape=(1, 2), device="cpu")
+        assert np.array_equal(zs[0], zs[1]) and np.all(np.isfinite(zs[0]))
+        assert all(r["pass"] for r in run_parity_ledger(emit=lambda s: None, quick=True, device="cpu"))
         loaded = [m for m, mod in sys.modules.items() if mod is not None]
         assert not any(m.startswith(("jax", "genomicbreedingmodels_tpu.")) or m == "genomicbreedingmodels_tpu"
                        for m in loaded), "jax or the JAX package was imported"

@@ -133,9 +133,13 @@ def test_batched_argument_validation(sim_small):
         gt.cvbulk_batched(g, p, n_replications=0, device=CPU)
     with pytest.raises(ValueError, match="not a batched CV model"):
         gt.cvbulk_batched(g, p, models=("mlp",), device=CPU)
-    # The Bayesian names run (tests/test_torch_bayesian_folds.py); only the
-    # fold axis over a device mesh is not ported yet.
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gt.cvbulk_batched(g, p, models=("ridge", "bayesc"), mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gt.cvbulk_batched(g, p, mesh=object(), device=CPU)
+    # A mesh of one rank gives mesh=None's CVs, bit for bit.
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+
+    kw = dict(models=("ridge", "bayesc"), n_replications=1, n_folds=2, mcmc_n_iter=8,
+              mcmc_n_burnin=2)
+    (one,) = run_ranks(lambda m: gt.cvbulk_batched(g, p, mesh=m, **kw), shape=(1, 1), device=CPU)
+    ref = gt.cvbulk_batched(g, p, device=CPU, **kw)
+    assert len(one[0]) == len(ref[0]) == 4
+    for a, b in zip(one[0], ref[0]):
+        assert a.fit.model == b.fit.model and np.array_equal(a.y_pred, b.y_pred)

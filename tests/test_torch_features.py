@@ -225,8 +225,13 @@ def test_epistasisfeatures_and_reconstitute_jax_names(data):
 
 def test_mesh_raises_and_device_is_explicit(data):
     _, _, g, p = data
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gt.transform2(gt.mult, g, p, mesh=object(), device=CPU)
+    # A mesh of one rank scans the pairs as mesh=None does.
+    from genomicbreedingmodels_tpu_torch.parallel.mesh import run_ranks
+
+    (one,) = run_ranks(lambda m: gt.transform2(gt.mult, g, p, mesh=m), shape=(1, 1), device=CPU)
+    ref = gt.transform2(gt.mult, g, p, device=CPU)
+    assert list(one.loci_alleles) == list(ref.loci_alleles)
+    assert np.array_equal(one.allele_frequencies, ref.allele_frequencies)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             gt.transform2(gt.mult, g, p)
