@@ -20,7 +20,13 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    this torch's mm takes `out_dtype`);
 5. the headline step at n=8192, p=262144 int8: `gram_dosage_lower` (K1) then
    `gblup_solve_lower`, checked against the plain-version path on the card
-   and timed against it;
+   and timed against it; the step split into its stages (K1, the int32 ->
+   f32 epilogue, the centering, the mirror and diagonal add, `cholesky_ex`,
+   `cholesky_solve`), each timed alone beside its bound, their sum against
+   the step's wall median; the blocked solver of the JAX package
+   (`gblup_solve_lower(nb=)` at nb = 8, 16, 32) on the same centered
+   triangle against the cuSOLVER path, and `blocked_cholesky`'s factor
+   against `torch.linalg.cholesky`;
    (K3) K3 (`grouped_block_update`, the grouped Gibbs block update) against
    its plain version on the same inputs and noise: identical selections,
    draws within K3_TOL; at bs=600 with K=6 and K=8, at bs=258 with K=6 and the
@@ -70,7 +76,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    against device="cpu" at 256x2048 (1x3 folds), the chain's first
    fold-batched K3 call against its single launches and the plain version;
    the cv cell at 2048x32768, 3x5 folds, over bayesc, bayesian_ridge and
-   bayesian_lasso at 200 sweeps, cold and warm (K3 once per block and sweep
+   bayesian_lasso at 200 sweeps, one cold call (K3 once per block and sweep
    for all 15 folds), beside phase 10 (c)'s `cvbulk` bayesc per fold;
 14. epistasis (`epistasis_phase`): `transform2` (mult, addnorm, raise_) on
    the card against device="cpu" at 256x2048; the JAX bench's `epistasis`
@@ -94,7 +100,12 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    on phase 7's panel against a float64 dense solve; `cvbulk_batched(mesh=)`
    (ridge, gblup, bayesc) against phases 10 and 13, the three GWAS scans
    against phase 11, `transform2(mesh=)` against mesh=None; the
-   `dryrun_multichip` twin at 2 and 4 ranks; the parity ledger on the card.
+   `dryrun_multichip` twin at 2 and 4 ranks; the parity ledger on the card;
+   the weak-scaling harness (`scripts/torch_weak_scaling.py`) at D = 1, 2;
+17. the Gram schedules (`gram_phase`): `gram_recursive`, `gram_triangular`,
+   `gram_centered_blocked` and `gram_centered_device` (the library product,
+   and K2 with `use_pallas=True`) against `gram_panel` (K2) at the bench's
+   2048x32768 cell in f32 and bf16, each timed.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
@@ -102,9 +113,9 @@ held against its plain version once more, on the first block of phase 7's
 chain as the chain called it. Phase 10 runs with the counters reset again
 and read after it, and every kernel must have launched there too; so do
 phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
-launch), 14 (no hand kernel on its path), 15 (K1 and K2 must launch) and 16
-(K1, K2 and K3 must launch).
-After each of phases 5-9, 10, 11, 12, 13, 14, 15 and 16 is read, K1 and K2
+launch), 14 (no hand kernel on its path), 15 (K1 and K2 must launch), 16
+(K1, K2 and K3 must launch) and 17 (K2 must launch).
+After each of phases 5-9, 10, 11, 12, 13, 14, 15, 16 and 17 is read, K1 and K2
 are held against their plain versions at every operand shape, and K3 at
 every (folds, bs, K), the phase launched them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
 panel goes through the profiler.
@@ -206,6 +217,17 @@ def kernel_build_report(lib_path: Path) -> None:
             print(f"  sass {fn}: {c}")
             check(c["IGMMA"] + c["HGMMA"] > 0 and c["UTMALDG"] > 0,
                   f"{fn} is a wgmma kernel fed by TMA")
+
+
+def load_script(name: str):
+    """The module scripts/<name>.py of this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "scripts"
+                                                  / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def check(cond: bool, what: str) -> None:
@@ -673,6 +695,122 @@ def hold_launched_shapes(held: dict, gen, phase: str) -> None:
           f"{len(k3_todo)} more shape(s) it launched; every launched shape is now held")
 
 
+# Phase 5's split of the headline step: each stage timed alone by CUDA
+# events on the headline's own inputs, beside its bound; the stages' sum is
+# held to the step's wall median within HEAD_SPLIT_TOL. The blocked solver of
+# the JAX package (`gblup_solve_lower(nb=)`) beside the cuSOLVER path on the
+# same centered triangle, held at the headline's λ = 0.1·p only: its explicit
+# block inverses lose accuracy as κ(block)², and λ = 0.1 on the raw scale
+# leaves K + λI within float32 rounding of singular (ROADMAP C.3). Its factor
+# is held to `torch.linalg.cholesky` at CHOL_TOL·max|L| (the JAX test's).
+HEAD_SPLIT_TOL = 0.10
+BLOCKED_NB = (8, 16, 32)
+CHOL_TOL = 5e-4
+
+
+def headline_split(D, y, wall_ms: float, card: str) -> tuple:
+    """The headline step `gblup_solve_lower(gram_dosage_lower(D), y, LAM)`
+    cut into its stages, each timed by CUDA events on the output of the one
+    before; returns (the centered lower triangle, the GEBVs, {stage: (ms,
+    bound_ms, bound_by)})."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.kernels.gram_tri import gram_tri_int8
+    from genomicbreedingmodels_tpu_torch.ops.grm import _center_gram_lower
+
+    n, p = D.shape
+    n2 = float(n) * n
+    out = {}
+
+    def stage(name, fn, reps, ops, peak, nbytes):
+        res = fn()
+        ms = cuda_ms(fn, reps=reps)
+        out[name] = (ms,) + bound(ops, PEAK[peak], nbytes)
+        return res
+
+    L32 = stage("K1 (gram_tri_int8)", lambda: gram_tri_int8(D, 2), 10,
+                n * (n + 1) * p, "int8", n * p + 2.0 * n * (n + 1))
+    Lf = stage("epilogue (int32 -> f32, / ploidy²)", lambda: L32.to(torch.float32) / 4.0, 10,
+               n2, "f32", 8 * n2)
+    Kc = stage("centering (_center_gram_lower)", lambda: _center_gram_lower(Lf), 10,
+               6 * n2, "f32", 8 * n2)
+
+    def mirror():
+        A = torch.tril(Kc) + torch.tril(Kc, -1).T
+        A.diagonal().add_(LAM)
+        return A
+
+    A = stage("mirror + diagonal add", mirror, 10, n2, "f32", 8 * n2)
+    L, info = stage("cholesky_ex (potrf)", lambda: torch.linalg.cholesky_ex(A), 10,
+                    n * n2 / 3, "f32", 8 * n2)
+
+    def solve():
+        mu = y.mean()
+        yc = y - mu
+        alpha = torch.cholesky_solve(yc.reshape(n, 1), L).reshape(n) / (info == 0)
+        return yc - LAM * alpha + mu
+
+    gebv = stage("cholesky_solve (potrs, 1 rhs) + GEBV", solve, 10, 2 * n2, "f32", 4 * n2 + 12 * n)
+    total = sum(v[0] for v in out.values())
+    for name, (ms, b_ms, by) in out.items():
+        print(f"  headline stage {name}: {ms:.3f} ms ({ms / total:.1%} of the sum), bound "
+              f"{b_ms:.3f} ms ({by}; {b_ms / ms:.1%} of bound)")
+    print(f"headline split {n}x{p}: stages sum {total:.3f} ms against the step's wall median "
+          f"{wall_ms:.3f} ms (ratio {total / wall_ms:.3f}); non-K1 stages "
+          f"{total - out['K1 (gram_tri_int8)'][0]:.3f} ms {card}")
+    check(abs(total / wall_ms - 1.0) <= HEAD_SPLIT_TOL,
+          f"the headline's stages sum to within {HEAD_SPLIT_TOL:.0%} of its wall median")
+    del L32, Lf, A, L
+    return Kc, gebv, out
+
+
+def blocked_solver_lines(Kc, y, gebv, card: str) -> dict:
+    """`gblup_solve_lower(Kc, y, LAM, nb=nb)` (the blocked solver) for nb in
+    BLOCKED_NB against the cuSOLVER path's GEBVs `gebv` (GEBV_TOL), and
+    `blocked_cholesky` against `torch.linalg.cholesky` (CHOL_TOL); the
+    median of 5 wall times of each solve and the CUDA-event time of each
+    factor, beside the cuSOLVER path's."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.ops.chol import blocked_cholesky, gblup_solve_lower
+
+    n = Kc.shape[0]
+    A = Kc.clone()  # the lower triangle is read; the upper keeps the centering's values
+    A.diagonal().add_(LAM)
+    Am = torch.tril(A) + torch.tril(A, -1).T
+    L_ref = torch.linalg.cholesky(Am)
+    scale = float(L_ref.abs().max())
+    out = {"cusolver": dict(solve_ms=wall_median_s(lambda: gblup_solve_lower(Kc, y, LAM), 5) * 1e3,
+                            factor_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Am), reps=5))}
+    print(f"solver n={n}, lam={LAM:g}: cuSOLVER (nb=None, the default) solve median "
+          f"{out['cusolver']['solve_ms']:.3f} ms, cholesky_ex {out['cusolver']['factor_ms']:.3f} ms {card}")
+    for nb in BLOCKED_NB:
+        L = blocked_cholesky(A, nb=nb, device=A.device)
+        g = gblup_solve_lower(Kc, y, LAM, nb=nb)
+        torch.cuda.synchronize()
+        err_L = float((L - L_ref).abs().max()) / scale
+        rel = float((g - gebv).abs().max() / gebv.abs().max())
+        finite = bool(torch.isfinite(g).all())
+        del L, g
+        b = -(-n // nb)
+        Ab = Am[:b, :b].contiguous()  # a diagonal block: its factor and its inverse, nb times a factor
+        eye = torch.eye(b, device=Ab.device)
+        diag_ms = nb * cuda_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(Ab)[0], eye, upper=False), reps=10)
+        rec = dict(solve_ms=wall_median_s(lambda: gblup_solve_lower(Kc, y, LAM, nb=nb), 5) * 1e3,
+                   factor_ms=cuda_ms(lambda: blocked_cholesky(A, nb=nb, device=A.device), reps=5),
+                   diagonal_blocks_ms=diag_ms, gebv_rel=rel, L_rel=err_L)
+        out[f"nb={nb}"] = rec
+        print(f"solver n={n}, lam={LAM:g}: blocked nb={nb} (panels of {b}) solve median "
+              f"{rec['solve_ms']:.3f} ms ({rec['solve_ms'] / out['cusolver']['solve_ms']:.2f}x "
+              f"cuSOLVER's), blocked_cholesky {rec['factor_ms']:.3f} ms, of it ~{diag_ms:.3f} ms the "
+              f"{nb} diagonal blocks' cholesky_ex + solve_triangular; max|Δ GEBV|/max|GEBV| against "
+              f"cuSOLVER {rel:.3g}, max|L - cholesky|/max|L| {err_L:.3g} {card}")
+        check(finite and rel <= GEBV_TOL and err_L <= CHOL_TOL, f"the blocked solver at nb={nb}")
+    del A, Am, L_ref
+    return out
+
+
 GWAS_SCANS = ("gwasols", "gwaslmm", "gwasreml")
 GWAS_COR_MIN, GWAS_S2_TOL = 0.999, 1e-3  # card vs device="cpu": statistic cor; gwaslmm σ² relative
 
@@ -1005,7 +1143,7 @@ EPI_BOUNDARY_REL, EPI_VALUE_TOL = 1e-5, 1e-6
 def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)) -> tuple:
     """Phase 13, the fold-batched Bayesian CV chains, with the launch
     counters set to 0 just before it; returns the counts it launched and
-    (b)'s warm CVs (phase 16 holds the mesh dispatch to them).
+    (b)'s CVs (phase 16 holds the mesh dispatch to them).
 
     (a) at n=256, p=2048 (phase 10 (a)'s called panel), 1 x 3 folds:
     pinned-variance BRR fold chains on the card, each fold's GEBVs against
@@ -1016,8 +1154,10 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
     launches and the plain version, after the phase's counts are read;
     (b) the JAX bench's `cv` cell (2048x32768, 3x5 folds) through
     `cvbulk_batched` over bayesc, bayesian_ridge and bayesian_lasso at 200
-    sweeps (50 burn-in), cold and warm: stage split, K3 launched sweeps x
-    blocks times per bayesc call (one launch per block for all 15 folds),
+    sweeps (50 burn-in), one call with the device caches cleared (a warm
+    repeat differed only by the 0.17 s h2d+gram stage, which phase 10 (b)
+    shows too): stage split, K3 launched sweeps x blocks times per bayesc
+    call (one launch per block for all 15 folds),
     peak memory, and bayesc's time per fold beside phase 10 (c)'s `cvbulk`
     (`cvbulk_bayesc_s`, 5 folds)."""
     import numpy as np
@@ -1086,7 +1226,7 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
     if on_card:
         check(k3_small == FOLD_SWEEPS * 8, "bayesc folds 256x2048: one K3 launch per block and sweep")
 
-    # -- (b) the cv cell at width: three Bayesian models over 15 folds, cold and warm --------
+    # -- (b) the cv cell at width: three Bayesian models over 15 folds, one cold call --------
     (n, p), reps, folds = width, 3, 5
     models = ("bayesc", "bayesian_ridge", "bayesian_lasso")
     G, P = cv_cell(gbm, n, p)
@@ -1095,7 +1235,7 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
     gbm.clear_device_caches()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    for call in ("cold", "warm"):
+    for call in ("cold",):
         k0 = gbm.LAUNCHES["gibbs_group"]
         (cvs, _), t = run_checked(dev, gbm.cvbulk_batched, G, P, models=models, n_replications=reps,
                                   n_folds=folds, store_effects=False, mcmc_n_iter=FOLD_SWEEPS,
@@ -1603,9 +1743,32 @@ MESH_COR_GAP, MESH_CG_ITERS, MESH_CG_LAM, MESH_CG_REL = 0.05, 100, 0.1, 1e-4
 MESH_GWAS_COR = {"gwasols": 0.99999, "gwaslmm": 0.9999, "gwasreml": 0.9999}
 
 
+def weak_scaling_part(gbm, dev, card: str, weak) -> dict:
+    """Phase 16 (h): `scripts/torch_weak_scaling.py` at D = 1 and 2 thread
+    ranks on `dev`, n x p_per_device = `weak`, 4 Gibbs sweeps, 10 CG
+    iterations; its JSON lines printed, every stage's time finite and
+    positive, K1 and K3 launched on every rank. Returns {D: {stage: s}}."""
+    import numpy as np
+    import torch
+
+    ws = load_script("torch_weak_scaling")
+    k0 = dict(gbm.LAUNCHES)
+    t0 = time.perf_counter()
+    res = ws.run_weak_scaling(device_counts=(1, 2), n=weak[0], p_per_device=weak[1], gibbs_iters=4,
+                              cg_iters=10, emit=lambda line: print(f"  {line}"), device=dev)
+    k1, k3 = (gbm.LAUNCHES[k] - k0[k] for k in ("gram_tri_int8", "gibbs_group"))
+    print(f"mesh (h) weak scaling {weak[0]}x{weak[1]} per rank at D = 1, 2: "
+          f"{time.perf_counter() - t0:.3f} s; K1 launches {k1}, K3 launches {k3} {card}")
+    check(set(res) == {1, 2} and all(np.isfinite(v) and v > 0 for r in res.values() for v in r.values()),
+          "mesh (h): every weak-scaling stage ran")
+    if torch.device(dev).type == "cuda":  # a warm-up and a timed GRM on every rank of D = 1 and 2
+        check(k1 == 2 * (1 + 2) and k3 > 0, "mesh (h): K1 and K3 launched on each rank")
+    return res
+
+
 def mesh_phase(gbm, dev, card: str, X_big, y_big, g_big, cor_single: float, cv_cvs, fold_cvs,
                gwas_stats, cv_width=(2048, 32_768), epi_cell=(512, 16_384), ranks: int = 2,
-               dryrun=(2, 4), parity_quick: bool = False) -> dict:
+               dryrun=(2, 4), parity_quick: bool = False, weak=(2048, 32_768)) -> dict:
     """Phase 16, the multi-device paths (parallel/), `ranks` thread ranks
     on `dev` (`run_ranks`, gloo), with the launch counters set to 0 just
     before it; returns the counts it launched.
@@ -1624,7 +1787,11 @@ def mesh_phase(gbm, dev, card: str, X_big, y_big, g_big, cor_single: float, cv_c
     (f) `transform2(mult, mesh=)` at the epistasis cell, k=1000, against
     mesh=None: the same (row, col) pairs;
     (g) `dryrun_multichip` at each of `dryrun` ranks, and the parity ledger
-    on the card, every row passing."""
+    on the card, every row passing;
+    (h) the weak-scaling harness (`scripts/torch_weak_scaling.py`) at D = 1
+    and 2 thread ranks, n x p_per_device = `weak`, 4 Gibbs sweeps and 10 CG
+    iterations: its JSON lines, every stage's time finite and positive, K1
+    and K3 launched on each rank."""
     import numpy as np
     import torch
 
@@ -1832,10 +1999,117 @@ def mesh_phase(gbm, dev, card: str, X_big, y_big, g_big, cor_single: float, cv_c
     print(f"mesh (g) parity ledger on {dev}: {sum(r['pass'] for r in rows)}/{len(rows)} rows pass, "
           f"{time.perf_counter() - t0:.3f} s {card}")
     check(all(r["pass"] for r in rows), "mesh (g): every parity row passes")
+
+    weak_scaling_part(gbm, dev, card, weak)
     launched = dict(gbm.LAUNCHES)
     if cuda:
         check(all(launched[k] > 0 for k in launched), "phase 16 launched K1, K2 and K3")
     return launched
+
+
+# Phase 17: the JAX package's other Gram schedules, ported as library
+# products, against `gram_panel` (K2) within K2_TOL on the raw Gram's scale,
+# max|X·Xᵀ|, as K2 is held. A float32 product (cuBLAS, TF32 off) of the
+# 2048x32768 cell lies ~3e-6·max|X·Xᵀ| from float64 and centering keeps that
+# error while it shrinks the entries ~4x, so a centered Gram is held on the
+# raw scale too (its distance over its own max|K| is printed beside it).
+
+
+def gram_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
+    """Phase 17, with the launch counters set to 0 just before it; returns
+    (the counts it launched, {dtype: {schedule: ms}}).
+
+    On a uniform `width` panel in f32 and in bf16: `gram_recursive`,
+    `gram_triangular` (centered and raw), `gram_centered_blocked`,
+    `gram_centered_device` (one library product) and
+    `gram_centered_device(use_pallas=True)` (K2), each against `gram_panel`
+    (K2; raw or centered alike) and against the float64 Gram, each timed by
+    CUDA events on the card."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.ops import grm
+
+    cuda = torch.device(dev).type == "cuda"
+    gbm.reset_launches()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        X = torch.rand(width, device=dev, generator=gen).to(dt)
+        refs = {True: grm.gram_panel(X, device=dev), False: grm.gram_panel(X, center=False, device=dev)}
+        scale = float(refs[False].abs().max())  # max|X·Xᵀ|: K2's hold is on this scale
+        Z = X.double()
+        exact = {False: Z @ Z.T}
+        Z -= Z.mean(0)
+        exact[True] = Z @ Z.T
+        del Z
+        twins = {
+            "gram_panel (K2)": (True, lambda: grm.gram_panel(X, device=dev)),
+            "gram_recursive": (True, lambda: grm.gram_recursive(X, device=dev)),
+            "gram_recursive(center=False)":
+                (False, lambda: grm.gram_recursive(X, center=False, device=dev)),
+            "gram_triangular": (True, lambda: grm.gram_triangular(X, device=dev)),
+            "gram_triangular(center=False)":
+                (False, lambda: grm.gram_triangular(X, center=False, device=dev)),
+            "gram_centered_blocked": (True, lambda: grm.gram_centered_blocked(X, device=dev)),
+            "gram_centered_device": (True, lambda: grm.gram_centered_device(X, device=dev)),
+            "gram_centered_device(use_pallas=True)":
+                (True, lambda: grm.gram_centered_device(X, use_pallas=True, device=dev)),
+        }
+        times[str(dt)[6:]] = {}
+        parts, bad = [], []
+        for name, (center, fn) in twins.items():
+            K = fn()
+            ref = refs[center]
+            d = float((K - ref).abs().max())
+            err64 = float((K - exact[center]).abs().max()) / scale
+            sym = bool(torch.equal(K, K.T))
+            ms = cuda_ms(fn, reps=3) if cuda else float("nan")
+            times[str(dt)[6:]][name] = ms
+            parts.append(f"{name} {ms:.3f} ms, against gram_panel {d / scale:.3g} (over its own "
+                         f"max|K| {d / float(ref.abs().max()):.3g}), against f64 {err64:.3g}, "
+                         f"symmetric {sym}")
+            # a centered Gram is mirrored by center_gram; a raw one is the products' own
+            if not (K.shape == ref.shape and K.dtype == torch.float32 and d <= K2_TOL * scale
+                    and (sym or not center)):
+                bad.append(name)
+            del K
+        print(f"Gram schedules {width[0]}x{width[1]} {str(dt)[6:]} (max|Δ| over max|X·Xᵀ|): "
+              + "; ".join(parts) + f" {card}")
+        check(not bad, f"{bad} {dt} against gram_panel")
+        del X, refs, exact
+    launched = dict(gbm.LAUNCHES)
+    if cuda:
+        check(launched["gram_tri_float"] > 0, "phase 17 launched K2")
+    return launched, times
+
+
+def k2_shape_times(shapes, gen, card: str, phase: str, mm_bf16, bf16_lib: str) -> list:
+    """K2 timed by CUDA events at each (dtype, n, p) operand shape it was
+    launched at in `phase`, on random panels of that shape, beside its bound,
+    its plain version and one library product (`torch.mm`, TF32 off; bf16
+    through `mm_bf16`). These launches come after the phase's counts."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.kernels.gram_tri import gram_tri_float, gram_tri_float_plain
+
+    out = []
+    for dt, n, p in shapes:
+        X = torch.rand((n, p), device="cuda", generator=gen).to(getattr(torch, dt))
+        f32 = dt == "float32"
+        ms = cuda_ms(lambda: gram_tri_float(X), reps=20)
+        plain_ms = cuda_ms(lambda: gram_tri_float_plain(X), reps=5)
+        lib_ms = cuda_ms((lambda: torch.mm(X, X.T)) if f32 else (lambda: mm_bf16(X)), reps=20)
+        bound_ms, bound_by = (gram_bound(n, p, "tf32", 4, products=3) if f32
+                              else gram_bound(n, p, "bf16", 2))
+        out.append(dict(shape=f"{n}x{p}", dtype=dt, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=lib_ms,
+                        library="torch.mm(X, X.T), TF32 off" if f32 else bf16_lib))
+        print(f"K2 {n}x{p} {dt} (launched in {phase}): {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {bound_ms / ms:.1%} of bound) vs plain (float64) {plain_ms:.4f} ms, "
+              f"{out[-1]['library']} {lib_ms:.4f} ms {card}")
+        del X
+    return out
 
 
 def main() -> int:
@@ -2114,7 +2388,14 @@ def main() -> int:
     print(f"headline GRM+GBLUP {n}x{p} int8 (K1 + cholesky, lam={LAM:g}): median {t * 1e3:.3f} ms, "
           f"{n * p / t:.4g} SNPs/s; plain path {t_plain * 1e3:.3f} ms, "
           f"{n * p / t_plain:.4g} SNPs/s {card}")
-    del D, y, gebv, gebv_plain
+    del gebv_plain
+    Kc, gebv_split, head_stages = headline_split(D, y, t * 1e3, card)
+    rel = float((gebv_split - gebv).abs().max() / gebv.abs().max())
+    print(f"headline split: GEBVs of the stages against the step's: bit-equal "
+          f"{bool(torch.equal(gebv_split, gebv))}, max|Δ|/max|GEBV| {rel:.3g}")
+    check(rel <= GEBV_TOL, "headline split: the stages give the step's GEBVs")
+    solvers = blocked_solver_lines(Kc, y, gebv_split, card)
+    del D, y, gebv, gebv_split, Kc
     torch.cuda.empty_cache()
 
     # -- 6. public API -----------------------------------------------------------
@@ -2296,6 +2577,8 @@ def main() -> int:
     ooc_launches, ooc_k1 = outofcore_phase(gbm, dev, card, called, phenomes)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s; launches in phase 15: {ooc_launches} {card}")
     hold_launched_shapes(held, gen, "phase 15")
+    ooc_k2 = k2_shape_times(sorted(_build.LAUNCH_SHAPES["gram_tri_float"]), gen, card, "phase 15",
+                            mm_bf16, bf16_lib)
 
     # -- 16. the mesh paths over thread ranks on this card, counters from zero ------------
     t0 = time.perf_counter()
@@ -2304,6 +2587,12 @@ def main() -> int:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches in phase 16: {mesh_launches} {card}")
     hold_launched_shapes(held, gen, "phase 16")
     del g_true, cv_cell_cvs, fold_cell_cvs, gwas_cell_stats
+
+    # -- 17. the Gram schedules, counters from zero ---------------------------------------
+    t0 = time.perf_counter()
+    gram_launches, gram_times = gram_phase(gbm, dev, card)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; launches in phase 17: {gram_launches} {card}")
+    hold_launched_shapes(held, gen, "phase 17")
 
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
@@ -2346,11 +2635,16 @@ def main() -> int:
     records["gram_tri_int8"]["phase16_launches"] = mesh_launches["gram_tri_int8"]
     records["gram_tri_float"]["phase16_launches"] = mesh_launches["gram_tri_float"]
     records["gibbs_group"]["phase16_launches"] = mesh_launches["gibbs_group"]
-    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14, 15 and 16, each counted from zero
+    records["gram_tri_float"]["phase15_shapes"] = ooc_k2
+    records["gram_tri_float"]["phase17_launches"] = gram_launches["gram_tri_float"]
+    records["gram_tri_float"]["phase17_ms"] = gram_times
+    records["gram_tri_int8"]["headline_stages"] = {k: v[0] for k, v in head_stages.items()}
+    records["gram_tri_int8"]["solvers"] = solvers
+    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14, 15, 16 and 17, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
                                            fold_launches, epi_launches, ooc_launches,
-                                           mesh_launches)),
+                                           mesh_launches, gram_launches)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]

@@ -20,9 +20,14 @@ Dosage panels: allele frequencies on the grid {0, 1/k, ..., 1} encode
 exactly as int8 dosages d = k·x (`encode_dosage`), and their raw Gram
 accumulates exactly in int32 (K1). `gram_auto` picks the path.
 
-The JAX package's TPU schedule variants (`gram_recursive`,
-`gram_triangular`, `gram_centered_blocked`, `gram_centered_device`) have no
-counterpart: on the card there is one schedule, the kernel's.
+The JAX package's other schedules are here as library products
+(`torch.matmul`, float32 output; a bf16 panel is cast to float32 first, which
+gives the JAX products' `preferred_element_type=f32` results exactly on the
+CPU and, with TF32 off, on the card): `gram_recursive` (the 2x2 recursion),
+`gram_triangular` (square row-block tiles of the lower triangle),
+`gram_centered_device` (one product, or K2 with `use_pallas=True`) and
+`gram_centered_blocked` (= `gram_centered`). The headline and every model
+take K1 or K2.
 """
 
 from __future__ import annotations
@@ -41,11 +46,15 @@ __all__ = [
     "entry_major",
     "gram_auto",
     "gram_centered",
+    "gram_centered_blocked",
+    "gram_centered_device",
     "gram_dosage",
     "gram_dosage_lower",
     "gram_dosage_snp_major",
     "gram_panel",
+    "gram_recursive",
     "gram_tri_snp_major",
+    "gram_triangular",
 ]
 
 
@@ -253,3 +262,86 @@ def gram_dosage_snp_major(F, ploidy: int = 2, center: bool = True, device="cuda"
     L = gram_tri_snp_major(F, ploidy, device)
     G = _mirror(L).to(torch.float32) / float(ploidy * ploidy)
     return center_gram(G) if center else G
+
+
+def _full_gram(Z: torch.Tensor, center: bool) -> torch.Tensor:
+    G = Z @ Z.T
+    return center_gram(G) if center else G
+
+
+def gram_centered_blocked(X, block_cols: int = 262_144, device="cuda") -> torch.Tensor:
+    """`gram_centered` under the JAX package's other name."""
+    return gram_centered(X, block_cols=block_cols, device=device)
+
+
+def _assemble_recursive(Z: torch.Tensor, d: int) -> torch.Tensor:
+    """Symmetric Z Zᵀ by 2x2 recursion: the off-diagonal block of each level
+    is one product, the diagonal blocks recurse `d` levels deep."""
+    if d == 0:
+        return Z @ Z.T
+    m = Z.shape[0] // 2
+    A, B = Z[:m], Z[m:]
+    off = B @ A.T
+    G = torch.empty((Z.shape[0], Z.shape[0]), dtype=Z.dtype, device=Z.device)
+    G[:m, :m] = _assemble_recursive(A, d - 1)
+    G[m:, m:] = _assemble_recursive(B, d - 1)
+    G[m:, :m] = off
+    G[:m, m:] = off.T
+    return G
+
+
+def gram_recursive(X, center: bool = True, depth: int | None = None, device="cuda") -> torch.Tensor:
+    """Centered (or raw) Gram, f32 (n, n), by recursive symmetric blocking.
+
+    The default depth keeps leaf diagonal blocks of at least 512 rows (at
+    most 4 levels), as the JAX twin's."""
+    Z = as_tensor(X, device, torch.float32)
+    n = Z.shape[0]
+    if depth is None:
+        depth = 0
+        while n >> (depth + 1) >= 512 and depth < 4:
+            depth += 1
+    if depth == 0:
+        return _full_gram(Z, center)
+    G = _assemble_recursive(Z, int(depth))
+    return center_gram(G) if center else G
+
+
+def gram_triangular(X, center: bool = True, nb: int | None = None, device="cuda") -> torch.Tensor:
+    """Centered (or raw) Gram, f32 (n, n), from nb x nb square row-block
+    tiles of the lower triangle, the panel zero-padded to nb·ceil(n/nb) rows,
+    each upper tile the transpose of its lower twin.
+
+    As the JAX twin: nb defaults to max(2, min(8, n // 1024)), and n < 2048
+    or nb < 2 takes one product."""
+    Z = as_tensor(X, device, torch.float32)
+    n = Z.shape[0]
+    if nb is None:
+        nb = max(2, min(8, n // 1024))
+    if n < 2048 or nb < 2:
+        return _full_gram(Z, center)
+    b = -(-n // nb)
+    if nb * b > n:
+        Z = torch.cat([Z, Z.new_zeros((nb * b - n, Z.shape[1]))])
+    G = torch.empty((nb * b, nb * b), dtype=Z.dtype, device=Z.device)
+    for i in range(nb):
+        Zi = Z[i * b : (i + 1) * b]
+        for j in range(i + 1):
+            T = Zi @ Z[j * b : (j + 1) * b].T
+            G[i * b : (i + 1) * b, j * b : (j + 1) * b] = T
+            if j < i:
+                G[j * b : (j + 1) * b, i * b : (i + 1) * b] = T.T
+    G = G[:n, :n]
+    return center_gram(G) if center else G.contiguous()
+
+
+def gram_centered_device(X, use_pallas: bool = False, device="cuda") -> torch.Tensor:
+    """Device-resident centered Gram, f32 (n, n).
+
+    By default one library product X·Xᵀ (`torch.mm`, float32; a bf16 panel
+    is cast first), double-centered, as the JAX default is XLA's product;
+    `use_pallas=True` takes K2 (`gram_panel`), as the JAX option takes its
+    Pallas kernel."""
+    if use_pallas:
+        return gram_panel(X, device=device)
+    return _full_gram(as_tensor(X, device, torch.float32), center=True)

@@ -1,6 +1,7 @@
 """Port GRM ops (ops/grm.py, core/grm.py) held against their JAX twins on
 sim_small-sized panels: 1e-5 relative, plus the lower-triangle contract."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -140,3 +141,109 @@ def test_core_grm_cuda_without_cuda_raises(sim_small):
         pytest.skip("this host has CUDA: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         gt.grm_simple(convert.genomes_from_reference(sim_small[0]))
+
+
+# The JAX package's other Gram schedules (ops/grm.py:gram_recursive,
+# gram_triangular, gram_centered_blocked, gram_centered_device): library
+# products in the port, held to the JAX functions at 1e-5·max|K|. On
+# sim_small a centered Gram cancels raw entries ~13x its own size, and the
+# JAX functions' float32 products and centering leave them up to 1.19e-5·max|K|
+# from the float64 centered Gram of the same values (the port: 5.5e-6). So a
+# centered Gram is held to that float64 Gram at 1e-5·max|K| and to the JAX
+# function at 2e-5·max|K|, the sum of the two sides' own roundings.
+
+
+def _close_centered(K, ref, X):
+    Z = torch.as_tensor(X).double().numpy()
+    Z = Z - Z.mean(axis=0)
+    _close(K, Z @ Z.T)
+    _close(K, ref, rel=2e-5)
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("depth", [None, 1, 2, 3])
+def test_gram_recursive_matches(sim_small, depth, center):
+    X = _panel(sim_small)
+    K = grm_t.gram_recursive(X, center=center, depth=depth, device=CPU)
+    assert K.dtype == torch.float32 and K.shape == (100, 100)
+    ref = grm_jax.gram_recursive(X.astype(np.float32), center=center, depth=depth)
+    if center:
+        assert torch.equal(K, K.T)  # center_gram mirrors its lower triangle
+        _close_centered(K, ref, X.astype(np.float32))
+    else:
+        _close(K, ref)
+        if depth:  # the off-diagonal block of the top level is one product, mirrored
+            assert torch.equal(K[50:, :50], K[:50, 50:].T)
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("nb", [None, 2, 3])
+def test_gram_triangular_matches(nb, center):
+    # n >= 2048 takes the tiled schedule (below it both take one product);
+    # 2050 rows pad to 3·684 at nb=3.
+    X = np.random.default_rng(1).random((2050, 48)).astype(np.float32)
+    K = grm_t.gram_triangular(X, center=center, nb=nb, device=CPU)
+    assert K.shape == (2050, 2050) and K.dtype == torch.float32
+    _close(K, grm_jax.gram_triangular(X, center=center, nb=nb))
+    b = -(-2050 // (nb or 2))
+    if not center:  # an upper tile is its lower twin's transpose
+        assert torch.equal(K[b : 2 * b, :b], K[:b, b : 2 * b].T)
+
+
+def test_gram_triangular_small_n_is_one_product(sim_small):
+    X = _panel(sim_small)
+    K = grm_t.gram_triangular(X, nb=4, device=CPU)
+    _close(K, grm_jax.gram_triangular(X, nb=4))
+    assert torch.equal(K, grm_t.gram_centered_device(X, device=CPU))
+
+
+def test_gram_recursive_algebraic_centering_beats_bf16_centering():
+    """tests/test_grm_ops.py's case on the port: the centering runs on the
+    f32 Gram of the bf16 panel, far closer to the float64 centered Gram of
+    the same values than a bf16 subtract of the column means."""
+    Xb = torch.from_numpy(np.random.default_rng(5).random((128, 2048))).to(torch.bfloat16)
+    X64 = Xb.double().numpy()  # what the product sees
+    Z = X64 - X64.mean(axis=0, keepdims=True)
+    K64 = Z @ Z.T
+    K_alg = grm_t.gram_recursive(Xb, depth=2, device=CPU).double().numpy()
+    mean_bf = torch.from_numpy(X64.mean(axis=0)).to(torch.bfloat16).double().numpy()
+    Zb = torch.from_numpy(X64 - mean_bf).to(torch.bfloat16).double().numpy()
+    den = np.abs(K64).max()
+    err_alg = np.abs(K_alg - K64).max() / den
+    err_bf16 = np.abs(Zb @ Zb.T - K64).max() / den
+    assert err_alg < err_bf16 / 5
+    assert err_alg < 1e-4
+
+
+def test_gram_centered_blocked_is_gram_centered(sim_small):
+    X = _panel(sim_small)
+    K = grm_t.gram_centered_blocked(X, block_cols=256, device=CPU)
+    assert torch.equal(K, grm_t.gram_centered(X, block_cols=256, device=CPU))
+    _close(K, grm_jax.gram_centered_blocked(X, block_cols=256))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_gram_centered_device_matches(sim_small, use_pallas, bf16):
+    from genomicbreedingmodels_tpu.ops.pallas_kernels import grm_pallas
+
+    X = torch.from_numpy(_panel(sim_small).astype(np.float32))
+    if bf16:
+        X = X.to(torch.bfloat16)
+    K = grm_t.gram_centered_device(X, use_pallas=use_pallas, device=CPU)
+    assert K.dtype == torch.float32 and K.shape == (100, 100)
+    Xj = np.asarray(X.float().numpy())
+    Xj = jnp.asarray(Xj, jnp.bfloat16) if bf16 else Xj
+    # the JAX option's Pallas kernel runs in interpret mode here, as its own tests run it
+    ref = grm_pallas(Xj, interpret=True) if use_pallas else grm_jax.gram_centered_device(Xj)
+    _close_centered(K, ref, X)
+
+
+def test_gram_schedules_cuda_without_cuda_raise(sim_small):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: device='cuda' is valid here")
+    X = _panel(sim_small)
+    for fn in (grm_t.gram_recursive, grm_t.gram_triangular, grm_t.gram_centered_device,
+               grm_t.gram_centered_blocked):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(X)

@@ -303,3 +303,34 @@ def test_two_processes_through_distributed_init(tmp_path):
     ref = gram_dosage(Xi, device=CPU).numpy()
     for r in range(2):
         assert np.array_equal(np.load(tmp_path / f"K{r}.npy"), ref)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_weak_scaling_harness_twin(D):
+    """scripts/torch_weak_scaling.py, the twin of scripts/weak_scaling.py
+    (tests/test_parallel.py's smoke run): every stage runs on thread ranks
+    and reports a positive time, one JSON line per (D, stage) and a summary
+    with the JAX harness's efficiency keys."""
+    import importlib.util
+    import json
+
+    spec = importlib.util.spec_from_file_location("torch_weak_scaling",
+                                                  ROOT / "scripts" / "torch_weak_scaling.py")
+    ws = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ws)
+    counts = (1, D) if D > 1 else (1,)
+    lines = []
+    results = ws.run_weak_scaling(device_counts=counts, n=48, p_per_device=128, gibbs_iters=2,
+                                  cg_iters=4, emit=lines.append, device=CPU)
+    assert set(results) == set(counts)
+    for d in counts:
+        assert set(results[d]) == {"grm", "gibbs", "cg"}
+        assert all(np.isfinite(v) and v > 0 for v in results[d].values())
+    rows = [json.loads(s) for s in lines[:-1]]
+    assert [(r["devices"], r["stage"], r["p_total"]) for r in rows] == [
+        (d, s, 128 * d) for d in counts for s in ("grm", "gibbs", "cg")]
+    summary = json.loads(lines[-1])
+    assert summary["summary"] and summary["device"] == "cpu"
+    for s in ("grm", "gibbs", "cg"):
+        assert summary[f"efficiency_{s}"]["1"] == 1.0
+        assert set(summary[f"efficiency_{s}_core_normalized"]) == {str(d) for d in counts}
