@@ -103,9 +103,18 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    `dryrun_multichip` twin at 2 and 4 ranks; the parity ledger on the card;
    the weak-scaling harness (`scripts/torch_weak_scaling.py`) at D = 1, 2;
 17. the Gram schedules (`gram_phase`): `gram_recursive`, `gram_triangular`,
-   `gram_centered_blocked` and `gram_centered_device` (the library product,
-   and K2 with `use_pallas=True`) against `gram_panel` (K2) at the bench's
-   2048x32768 cell in f32 and bf16, each timed.
+   `gram_centered_blocked` and `gram_centered_device` (K2 in both its modes)
+   against `gram_panel` (K2) at the bench's 2048x32768 cell in f32 and bf16,
+   each timed;
+18. the repaired GRM routes and the examples (`examples_phase`): (a)
+   `gram_auto` of phase 6's called panel as an int8 tensor (K1, bit-equal to
+   `gram_dosage`) and `gram_centered_device`'s default at 2048x32768 f32 and
+   bf16 (K2, against `gram_panel`, timed beside the library product it ran
+   before); (b) `examples/torch_quickstart.py`, `torch_gwas_workflow.py`,
+   `torch_out_of_core.py` and `torch_multichip_sharding.py` through their
+   `main(device="cuda")` at their own sizes, each against `main(device="cpu")`
+   (held-out cor, CV folds, the gwasols top 20, GEBVs, the sharded GRMs
+   against the single-device `gram_auto`), with the kernels each launched.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
@@ -114,8 +123,9 @@ chain as the chain called it. Phase 10 runs with the counters reset again
 and read after it, and every kernel must have launched there too; so do
 phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
 launch), 14 (no hand kernel on its path), 15 (K1 and K2 must launch), 16
-(K1, K2 and K3 must launch) and 17 (K2 must launch).
-After each of phases 5-9, 10, 11, 12, 13, 14, 15, 16 and 17 is read, K1 and K2
+(K1, K2 and K3 must launch), 17 (K2 must launch) and 18 (K1, K2 and K3 must
+launch).
+After each of phases 5-9 and 10 to 18 is read, K1 and K2
 are held against their plain versions at every operand shape, and K3 at
 every (folds, bs, K), the phase launched them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
 panel goes through the profiler.
@@ -161,6 +171,9 @@ K3_TOL = 1e-4
 # per model; ridge/gblup per-fold max |Δ y_pred| over std(y)), and
 # n_workers=2 against n_workers=1 (max |Δ y_pred| over max |y_pred|).
 CV_COR_MIN, CV_DUAL_TOL, WORKERS_TOL = 0.999, 1e-3, 1e-4
+# Phase 10 (c)'s chains, cut from the config's 1500 sweeps to hold the
+# script's time.
+CV_C_SWEEPS, CV_C_BURN = 100, 25
 # BASELINE config 3 as bench.py:389-406 builds it: bs=600 divides p, no padding.
 N_BIG, P_BIG, BS_BIG, SWEEPS_BIG, BURN_BIG = 10_000, 102_000, 600, 60, 10
 # Published dense peaks of one H100 SXM at 700 W (operations/s) and its HBM rate (bytes/s).
@@ -219,11 +232,11 @@ def kernel_build_report(lib_path: Path) -> None:
                   f"{fn} is a wgmma kernel fed by TMA")
 
 
-def load_script(name: str):
-    """The module scripts/<name>.py of this checkout."""
+def load_script(name: str, folder: str = "scripts"):
+    """The module <folder>/<name>.py of this checkout."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "scripts"
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / folder
                                                   / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -453,7 +466,8 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
     store_effects=False, cold (device caches cleared) then warm, with
     LAST_TIMER's stage split;
     (c) `cvbulk` at the same width, 1x5 folds, one call per model (ols,
-    ridge, lasso, gblup, bayesc, mlp; chains cut to 200 sweeps, 50 burn-in):
+    ridge, lasso, gblup, bayesc, mlp; chains cut to CV_C_SWEEPS sweeps,
+    CV_C_BURN burn-in):
     30 CVs, no model-fitting warning, K2 and K3 launched by these calls;
     then ridge and bayesc again with n_workers=2, each y_pred within
     WORKERS_TOL·max|y_pred| of the n_workers=1 run;
@@ -527,7 +541,7 @@ def cv_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
 
     # -- (c) the executor at the same width ---------------------------------------------
     cfg = config.get_config()
-    config.set_config(dataclasses.replace(cfg, mcmc_n_iter=200, mcmc_n_burnin=50))
+    config.set_config(dataclasses.replace(cfg, mcmc_n_iter=CV_C_SWEEPS, mcmc_n_burnin=CV_C_BURN))
     try:
         before = dict(gbm.LAUNCHES)
         one, seconds = {}, {}
@@ -1133,7 +1147,7 @@ def multitrait_phase(gbm, dev, card, X_big, g_env, n_cut: int = 512, p_cut: int 
 # BayesC fold chains on the card against device="cpu" (pooled y_pred
 # correlation: two chains of other generators, 150 kept sweeps each).
 FOLD_CLOSED_COR, FOLD_CARD_CPU_COR = 0.999, 0.95
-FOLD_SWEEPS, FOLD_BURN = 200, 50  # the chains of phase 13 (b), as phase 10 (c)'s
+FOLD_SWEEPS, FOLD_BURN = 200, 50  # the chains of phase 13 (b)
 K3_FOLDS = 15  # the cv cell's 3 x 5 folds
 # Phase 14: selected names outside boundary ties (float64 |slope| within this
 # of the k-th selected one), and values of common names.
@@ -1158,8 +1172,8 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
     repeat differed only by the 0.17 s h2d+gram stage, which phase 10 (b)
     shows too): stage split, K3 launched sweeps x blocks times per bayesc
     call (one launch per block for all 15 folds),
-    peak memory, and bayesc's time per fold beside phase 10 (c)'s `cvbulk`
-    (`cvbulk_bayesc_s`, 5 folds)."""
+    peak memory, and bayesc's time per fold and sweep beside phase 10 (c)'s
+    `cvbulk` (`cvbulk_bayesc_s`, 5 folds of CV_C_SWEEPS sweeps)."""
     import numpy as np
     import torch
 
@@ -1252,9 +1266,10 @@ def fold_phase(gbm, dev, card: str, cvbulk_bayesc_s: float, width=(2048, 32_768)
             check(k3 == FOLD_SWEEPS * n_blocks,
                   f"Bayesian cv cell {call}: K3 launched sweeps x blocks = {FOLD_SWEEPS * n_blocks} times")
         per_fold = stages["bayesc_solve"]["total_s"] / (reps * folds)
+        cvbulk_per_fold = cvbulk_bayesc_s / 5 * FOLD_SWEEPS / CV_C_SWEEPS  # at FOLD_SWEEPS sweeps
         print(f"folds (b) bayesc per fold: {per_fold:.4f} s fold-batched (bayesc_solve / {reps * folds}) "
-              f"against {cvbulk_bayesc_s / 5:.4f} s per fold for phase 10 (c)'s cvbulk, "
-              f"{cvbulk_bayesc_s / 5 / per_fold:.1f}x {card}")
+              f"against {cvbulk_per_fold:.4f} s per fold for phase 10 (c)'s cvbulk (its "
+              f"{CV_C_SWEEPS} sweeps scaled to {FOLD_SWEEPS}), {cvbulk_per_fold / per_fold:.1f}x {card}")
     cors = {m: float(np.mean([cv.metrics["cor"] for cv in cvs if cv.fit.model == m])) for m in models}
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
     print("folds (b) mean validation cor: " + " ".join(f"{m}={c:.4f}" for m, c in cors.items())
@@ -2021,8 +2036,8 @@ def gram_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
 
     On a uniform `width` panel in f32 and in bf16: `gram_recursive`,
     `gram_triangular` (centered and raw), `gram_centered_blocked`,
-    `gram_centered_device` (one library product) and
-    `gram_centered_device(use_pallas=True)` (K2), each against `gram_panel`
+    `gram_centered_device` and `gram_centered_device(use_pallas=True)` (both
+    `gram_panel`'s K2), each against `gram_panel`
     (K2; raw or centered alike) and against the float64 Gram, each timed by
     CUDA events on the card."""
     import torch
@@ -2082,6 +2097,214 @@ def gram_phase(gbm, dev, card: str, width=(2048, 32_768)) -> tuple:
     if cuda:
         check(launched["gram_tri_float"] > 0, "phase 17 launched K2")
     return launched, times
+
+
+# Phase 18: the repaired GRM routes (ROADMAP C.1, C.2) and the port's four
+# examples, each run through its main(device=) on the card and again with
+# device="cpu" at the same size. Card against CPU: quickstart's ols, ridge
+# and gblup held-out cor within EX_COR_TOL, the same CV tags and folds;
+# gwasols's top 20 the same but for markers tied (within EX_TIE_TOL of the
+# 20th |b|, relative); out-of-core GEBVs within EX_GEBV_TOL·max|GEBV|. The
+# multichip example's sharded GRMs against the single-device `gram_auto`:
+# float within K2_TOL·max|K|, int8 bit-equal; every rank the same bits.
+EXAMPLES = ("torch_quickstart", "torch_gwas_workflow", "torch_out_of_core",
+            "torch_multichip_sharding")
+EXAMPLE_KERNELS = {  # what each example must launch on the card
+    "torch_quickstart": ("gram_tri_float",),
+    "torch_gwas_workflow": ("gram_tri_float",),
+    "torch_out_of_core": ("gram_tri_int8",),
+    "torch_multichip_sharding": ("gram_tri_int8", "gram_tri_float", "gibbs_group"),
+}
+EX_COR_TOL, EX_TIE_TOL, EX_GEBV_TOL = 1e-3, 1e-4, 1e-4
+
+
+def _finite(*xs) -> bool:
+    import numpy as np
+
+    return all(bool(np.all(np.isfinite(np.asarray(x, dtype=float)))) for x in xs)
+
+
+def start_cpu_examples(sizes=None, threads: int = 4) -> tuple:
+    """Starts phase 18's references: a child process that runs each example's
+    main(device="cpu") (at `sizes[name]`, else its own size) with `threads`
+    torch threads and pickles (result, wall seconds) per example into a new
+    temporary directory. Returns (the process, the directory); the caller
+    collects with `cpu_example_results`, and `atexit` ends the child if the
+    script stops first."""
+    import atexit
+    import tempfile
+    import textwrap
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    code = textwrap.dedent(f"""
+        import pickle, sys, time
+        sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})
+        import torch
+        torch.set_num_threads({threads})
+        import chip_smoke
+        for name in chip_smoke.EXAMPLES:
+            example = chip_smoke.load_script(name, "examples")
+            t0 = time.perf_counter()
+            res = example.main(device="cpu", **{sizes or {}!r}.get(name, {{}}))
+            with open({str(out)!r} + "/" + name + ".pkl", "wb") as f:
+                pickle.dump((res, time.perf_counter() - t0), f)
+    """)
+    with open(out / "log.txt", "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def cpu_example_results(proc, out: Path, timeout: float = 600.0) -> dict:
+    """Waits for `start_cpu_examples`'s child; returns {name: (result,
+    seconds)} and removes its directory. Fails if the child failed."""
+    import pickle
+    import shutil
+
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=timeout)
+    waited = time.perf_counter() - t0
+    log = (out / "log.txt").read_text()
+    if rc != 0:
+        print(log[-3000:])
+    check(rc == 0, "the examples' device='cpu' runs (child process)")
+    res = {}
+    for name in EXAMPLES:
+        with open(out / f"{name}.pkl", "rb") as f:
+            res[name] = pickle.load(f)
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"phase 18 (b) the examples' device='cpu' runs (a child process started after the "
+          f"build, {len(log.splitlines())} lines of output): waited {waited:.1f} s for it")
+    return res
+
+
+def grm_routes_part(gbm, dev, card: str, D_called, width=(2048, 32_768)) -> dict:
+    """Phase 18 (a): `gram_auto` of an int8 tensor of `D_called` takes K1 and
+    equals `gram_dosage` bit for bit (C.1); `gram_centered_device`'s default
+    on a uniform `width` panel, f32 and bf16, takes K2 and stays within
+    K2_TOL·max|X·Xᵀ| of `gram_panel` (C.2), timed beside the library product
+    it ran before (one float32 `torch.mm` of the panel cast to float32, then
+    `center_gram`). Returns {dtype: (default ms, library product ms)}."""
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.ops import grm
+
+    cuda = torch.device(dev).type == "cuda"
+    D = torch.from_numpy(D_called).to(dev)
+    before = gbm.LAUNCHES["gram_tri_int8"]
+    K_auto = grm.gram_auto(D, device=dev)
+    k1 = gbm.LAUNCHES["gram_tri_int8"] - before
+    equal = torch.equal(K_auto, grm.gram_dosage(D, device=dev))
+    print(f"phase 18 (a) gram_auto of an int8 tensor {D.shape[0]}x{D.shape[1]}: bit-equal to "
+          f"gram_dosage {equal}, K1 launches {k1}, finite {bool(torch.isfinite(K_auto).all())}")
+    check(equal and bool(torch.isfinite(K_auto).all()) and (k1 > 0 or not cuda),
+          "gram_auto of an int8 tensor is gram_dosage through K1")
+    del D, K_auto
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        X = torch.rand(width, device=dev, generator=gen).to(dt)
+        before = gbm.LAUNCHES["gram_tri_float"]
+        K = grm.gram_centered_device(X, device=dev)
+        k2 = gbm.LAUNCHES["gram_tri_float"] - before
+        scale = float(grm.gram_panel(X, center=False, device=dev).abs().max())
+        d = float((K - grm.gram_panel(X, device=dev)).abs().max())
+        ms = cuda_ms(lambda: grm.gram_centered_device(X, device=dev), reps=5) if cuda else float("nan")
+        lib_ms = (cuda_ms(lambda: grm._full_gram(X.float(), center=True), reps=5) if cuda
+                  else float("nan"))
+        times[str(dt)[6:]] = (ms, lib_ms)
+        print(f"phase 18 (a) gram_centered_device {width[0]}x{width[1]} {str(dt)[6:]}: {ms:.3f} ms "
+              f"(K2, launches {k2}), the library product it ran before {lib_ms:.3f} ms; against "
+              f"gram_panel {d / scale:.3g} of max|X·Xᵀ| {card}")
+        check(K.dtype == torch.float32 and d <= K2_TOL * scale and (k2 > 0 or not cuda),
+              f"gram_centered_device {dt} is gram_panel through K2")
+        del X, K
+    return times
+
+
+def examples_part(gbm, dev, card: str, cpu_runs: dict, sizes=None) -> dict:
+    """Phase 18 (b): each example's main(device=dev), held against its
+    main(device="cpu") at the same size (`sizes[name]`, else the example's
+    own) from `cpu_runs` ({name: (result, seconds)}, as `cpu_example_results`
+    gives them); their wall seconds, returned numbers and the checks above.
+    Returns {name: {kernel: launches}} of the runs on `dev`."""
+    import numpy as np
+    import torch
+
+    from genomicbreedingmodels_tpu_torch.ops import grm
+
+    cuda = torch.device(dev).type == "cuda"
+    sizes = sizes or {}
+    runs, launched, seconds = {}, {}, {}
+    for name in EXAMPLES:
+        example = load_script(name, "examples")
+        snap = dict(gbm.LAUNCHES)
+        t0 = time.perf_counter()
+        runs[name] = example.main(device=str(dev), **sizes.get(name, {}))
+        if cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launched[name] = {k: gbm.LAUNCHES[k] - snap[k] for k in snap}
+        if cuda:
+            missing = [k for k in EXAMPLE_KERNELS[name] if launched[name][k] == 0]
+            check(not missing, f"{name} launched {EXAMPLE_KERNELS[name]} (not {missing})")
+    for name in EXAMPLES:
+        print(f"phase 18 (b) {name}: {seconds[name]:.2f} s on {dev}, {cpu_runs[name][1]:.2f} s with "
+              f"device='cpu'; launches {launched[name]} {card}")
+        runs[name] = (runs[name], cpu_runs[name][0])
+
+    q, qc = runs["torch_quickstart"]
+    dcor = {m: abs(q["held_out_cor"][m] - qc["held_out_cor"][m]) for m in ("ols", "ridge", "gblup")}
+    same_cv = q["cv_tags"] == qc["cv_tags"] and q["cv_entries"] == qc["cv_entries"]
+    print("phase 18 (b) quickstart held-out cor card / cpu: " + ", ".join(
+        f"{m} {q['held_out_cor'][m]:.6f} / {qc['held_out_cor'][m]:.6f}" for m in q["held_out_cor"])
+        + f"; CV {len(q['cv_tags'])} jobs, same tags and folds {same_cv}, summary "
+        f"{q['cv_summary']} / {qc['cv_summary']}")
+    check(max(dcor.values()) <= EX_COR_TOL and same_cv
+          and _finite(list(q["held_out_cor"].values()), list(q["in_sample_cor"].values()),
+                      q["cv_cor"]), f"quickstart card against cpu (held-out cor Δ {dcor})")
+
+    g, gc = runs["torch_gwas_workflow"]
+    b_dev, b_cpu = np.abs(g["gwasols"]["b_hat"]), np.abs(gc["gwasols"]["b_hat"])
+    kth = np.sort(b_cpu)[-20]
+    odd = set(g["gwasols"]["top20"]) ^ set(gc["gwasols"]["top20"])
+    ties = all(abs(b_cpu[j] - kth) <= EX_TIE_TOL * kth and abs(b_dev[j] - kth) <= EX_TIE_TOL * kth
+               for j in odd)
+    print("phase 18 (b) gwas direct / tagging in the top 20, card and cpu: " + ", ".join(
+        f"{s} {g[s]['direct']}/{g[s]['tagged']} and {gc[s]['direct']}/{gc[s]['tagged']}" for s in g)
+        + f"; gwasols top-20 sets differ in {sorted(odd)} (ties {ties})")
+    check(ties and _finite(*(g[s]["b_hat"] for s in g)), "gwasols top 20 card against cpu")
+
+    o, oc = runs["torch_out_of_core"]
+    rel = float(np.abs(o["gebv"] - oc["gebv"]).max() / np.abs(oc["gebv"]).max())
+    print(f"phase 18 (b) out_of_core: {o['n_shards']} shards, mean diag {o['mean_diag']:.6f}, "
+          f"cor(GEBV, y) {o['cor']:.6f} (cpu {oc['cor']:.6f}), GEBVs against cpu max|Δ|/max|GEBV| "
+          f"{rel:.3g}")
+    check(rel <= EX_GEBV_TOL and _finite(o["gebv"]), "out_of_core GEBVs card against cpu")
+
+    m, mc = runs["torch_multichip_sharding"]
+    K1 = grm.gram_auto(m["X"], device=dev).cpu()  # not on the dosage grid: K2
+    err = float((torch.from_numpy(m["K"]) - K1).abs().max() / K1.abs().max())
+    K8 = grm.gram_auto(torch.from_numpy(m["dosages"]).to(dev), device=dev).cpu()  # int8: K1
+    equal8 = torch.equal(torch.from_numpy(m["K_dosage"]), K8)
+    print(f"phase 18 (b) multichip ({m['ranks']} ranks): sharded GRM against gram_auto "
+          f"max|Δ|/max|K| {err:.3g}, int8 sharded GRM bit-equal {equal8}, ranks equal "
+          f"{m['ranks_equal']}, fit cor {m['fit_cor']:.6f} (cpu {mc['fit_cor']:.6f})")
+    check(err <= K2_TOL and equal8 and m["ranks_equal"] and mc["ranks_equal"]
+          and _finite(m["K"], m["beta"], m["b_hat"], m["fit_cor"]), "multichip sharded paths")
+    return launched
+
+
+def examples_phase(gbm, dev, card: str, D_called, cpu_runs: dict, width=(2048, 32_768),
+                   sizes=None) -> tuple:
+    """Phase 18, with the launch counters set to 0 just before it: (a) then
+    (b) against `cpu_runs`; returns (the counts it launched, (a)'s times,
+    (b)'s launches per example)."""
+    gbm.reset_launches()
+    times = grm_routes_part(gbm, dev, card, D_called, width)
+    per_example = examples_part(gbm, dev, card, cpu_runs, sizes)
+    return dict(gbm.LAUNCHES), times, per_example
 
 
 def k2_shape_times(shapes, gen, card: str, phase: str, mm_bf16, bf16_lib: str) -> list:
@@ -2172,6 +2395,9 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     kernel_build_report(_build.build())
+    # Phase 18's device="cpu" references run in a child process from here on,
+    # on 4 of the host's cores, beside the card's phases 3-6.
+    cpu_examples = start_cpu_examples()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2594,6 +2820,17 @@ def main() -> int:
     print(f"phase 17: {time.perf_counter() - t0:.1f} s; launches in phase 17: {gram_launches} {card}")
     hold_launched_shapes(held, gen, "phase 17")
 
+    # -- 18. the repaired GRM routes and the examples, counters from zero -----------------
+    t0 = time.perf_counter()
+    ex_launches, ex_times, ex_kernels = examples_phase(
+        gbm, dev, card, encode_dosage(called.allele_frequencies, ploidy=2),
+        cpu_example_results(*cpu_examples))
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s; launches in phase 18: {ex_launches}; per "
+          f"example: {ex_kernels} {card}")
+    for name in ("gram_tri_int8", "gram_tri_float", "gibbs_group"):
+        check(ex_launches[name] > 0, f"{name} launched in phase 18")
+    hold_launched_shapes(held, gen, "phase 18")
+
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
     # The profiler slows the host, so the device time is also set against
@@ -2638,13 +2875,17 @@ def main() -> int:
     records["gram_tri_float"]["phase15_shapes"] = ooc_k2
     records["gram_tri_float"]["phase17_launches"] = gram_launches["gram_tri_float"]
     records["gram_tri_float"]["phase17_ms"] = gram_times
+    records["gram_tri_float"]["phase18_default_ms"] = ex_times
+    for name in sources:
+        records[name]["phase18_launches"] = ex_launches[name]
+        records[name]["phase18_per_example"] = {ex: c[name] for ex, c in ex_kernels.items()}
     records["gram_tri_int8"]["headline_stages"] = {k: v[0] for k, v in head_stages.items()}
     records["gram_tri_int8"]["solvers"] = solvers
-    kernels = [  # launches: phases 5-9, 10, 11, 12, 13, 14, 15, 16 and 17, each counted from zero
+    kernels = [  # launches: phases 5-9, 10, 11, ..., 18, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
                                            fold_launches, epi_launches, ooc_launches,
-                                           mesh_launches, gram_launches)),
+                                           mesh_launches, gram_launches, ex_launches)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]

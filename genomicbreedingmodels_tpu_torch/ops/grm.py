@@ -24,10 +24,10 @@ The JAX package's other schedules are here as library products
 (`torch.matmul`, float32 output; a bf16 panel is cast to float32 first, which
 gives the JAX products' `preferred_element_type=f32` results exactly on the
 CPU and, with TF32 off, on the card): `gram_recursive` (the 2x2 recursion),
-`gram_triangular` (square row-block tiles of the lower triangle),
-`gram_centered_device` (one product, or K2 with `use_pallas=True`) and
-`gram_centered_blocked` (= `gram_centered`). The headline and every model
-take K1 or K2.
+`gram_triangular` (square row-block tiles of the lower triangle) and
+`gram_centered_blocked` (= `gram_centered`); `gram_centered_device` is
+`gram_panel` (K2) in both its modes, as the JAX default is its
+`gram_panel`. The headline and every model take K1 or K2.
 """
 
 from __future__ import annotations
@@ -214,11 +214,14 @@ def gram_dosage_lower(D, ploidy: int = 2, device="cuda") -> torch.Tensor:
 
 def gram_auto(X, ploidy: int = 2, center: bool = True, device="cuda") -> torch.Tensor:
     """Centered Gram with automatic path selection: exact int8 dosages (K1)
-    when the panel sits on the {0, 1/ploidy, ..., 1} grid, K2 otherwise."""
+    when the panel sits on the {0, 1/ploidy, ..., 1} grid or is an int8
+    tensor of dosages already, K2 otherwise."""
     if isinstance(X, np.ndarray):
         D = encode_dosage(X, ploidy=ploidy)
         if D is not None:
             return gram_dosage(D, ploidy=ploidy, center=center, device=device)
+    elif isinstance(X, torch.Tensor) and X.dtype == torch.int8:
+        return gram_dosage(X, ploidy=ploidy, center=center, device=device)
     return gram_panel(X, center=center, device=device)
 
 
@@ -336,12 +339,8 @@ def gram_triangular(X, center: bool = True, nb: int | None = None, device="cuda"
 
 
 def gram_centered_device(X, use_pallas: bool = False, device="cuda") -> torch.Tensor:
-    """Device-resident centered Gram, f32 (n, n).
-
-    By default one library product X·Xᵀ (`torch.mm`, float32; a bf16 panel
-    is cast first), double-centered, as the JAX default is XLA's product;
-    `use_pallas=True` takes K2 (`gram_panel`), as the JAX option takes its
-    Pallas kernel."""
-    if use_pallas:
-        return gram_panel(X, device=device)
-    return _full_gram(as_tensor(X, device, torch.float32), center=True)
+    """Device-resident centered Gram, f32 (n, n): `gram_panel` (K2, a bf16
+    panel kept bf16) either way. The JAX default is its `gram_panel` and its
+    `use_pallas=True` option the Pallas kernel that K2 ports, so both modes
+    are the same call here."""
+    return gram_panel(X, device=device)

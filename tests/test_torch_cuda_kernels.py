@@ -643,3 +643,32 @@ def test_sharded_gibbs_chain_with_k3_finishes_on_card(cuda_device):
     (mu0, b0), (mu1, b1) = result["outs"]
     assert mu0 == mu1 and np.array_equal(b0, b1) and np.all(np.isfinite(b0))
     assert gibbs_group.LAUNCHES["gibbs_group"] - before == 2 * 20 * 5  # 2 ranks x 20 sweeps x 5 blocks
+
+
+@pytest.mark.cuda
+def test_gram_auto_int8_tensor_takes_k1_on_card(cuda_device):
+    from genomicbreedingmodels_tpu_torch.ops import grm
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    D = torch.randint(0, 3, (300, 1001), dtype=torch.int8, device=cuda_device, generator=g)
+    before = dict(gram_tri.LAUNCHES)
+    K = grm.gram_auto(D, device=cuda_device)
+    assert gram_tri.LAUNCHES["gram_tri_int8"] == before["gram_tri_int8"] + 1
+    assert gram_tri.LAUNCHES["gram_tri_float"] == before["gram_tri_float"]
+    assert torch.equal(K, grm.gram_dosage(D, device=cuda_device))
+    assert torch.equal(K.cpu(), grm.gram_dosage(D.cpu(), device="cpu"))  # K1 is exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_gram_centered_device_takes_k2_on_card(cuda_device, dtype, use_pallas):
+    from genomicbreedingmodels_tpu_torch.ops import grm
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    X = torch.rand((300, 1001), device=cuda_device, generator=g).to(dtype)
+    before = gram_tri.LAUNCHES["gram_tri_float"]
+    K = grm.gram_centered_device(X, use_pallas=use_pallas, device=cuda_device)
+    assert gram_tri.LAUNCHES["gram_tri_float"] == before + 1
+    assert K.dtype == torch.float32
+    assert torch.equal(K, grm.gram_panel(X, device=cuda_device))

@@ -106,8 +106,16 @@ def test_gram_centered_streams_blocks(sim_small):
     _close(K, grm_t.gram_centered(X, device=CPU))
 
 
-@pytest.mark.parametrize("called", [False, True])
+@pytest.mark.parametrize("called", [False, True, "int8"])
 def test_gram_auto_matches(sim_small, called):
+    if called == "int8":
+        # An int8 tensor is a dosage panel: K1's route, exactly JAX's gram_auto
+        # of the int8 array (its gram_dosage), where K2 gave ploidy² times it.
+        D = np.random.default_rng(0).integers(0, 3, size=(64, 256)).astype(np.int8)
+        K = grm_t.gram_auto(torch.from_numpy(D), device=CPU)
+        assert np.array_equal(K.numpy(), np.asarray(grm_jax.gram_auto(jnp.asarray(D))))
+        assert torch.equal(K, grm_t.gram_dosage(D, device=CPU))
+        return
     X = _panel(sim_small, called=called)
     _close(grm_t.gram_auto(X, device=CPU), grm_jax.gram_auto(X))
 
@@ -194,7 +202,7 @@ def test_gram_triangular_small_n_is_one_product(sim_small):
     X = _panel(sim_small)
     K = grm_t.gram_triangular(X, nb=4, device=CPU)
     _close(K, grm_jax.gram_triangular(X, nb=4))
-    assert torch.equal(K, grm_t.gram_centered_device(X, device=CPU))
+    assert torch.equal(K, grm_t.gram_recursive(X, depth=0, device=CPU))  # one product
 
 
 def test_gram_recursive_algebraic_centering_beats_bf16_centering():
@@ -237,6 +245,20 @@ def test_gram_centered_device_matches(sim_small, use_pallas, bf16):
     # the JAX option's Pallas kernel runs in interpret mode here, as its own tests run it
     ref = grm_pallas(Xj, interpret=True) if use_pallas else grm_jax.gram_centered_device(Xj)
     _close_centered(K, ref, X)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gram_centered_device_is_gram_panel(sim_small, bf16):
+    # Both modes are gram_panel's call (K2; a bf16 panel stays bf16), bit for
+    # bit, and within the schedules' 2e-5 of the JAX default (its gram_panel).
+    X = torch.from_numpy(_panel(sim_small).astype(np.float32))
+    if bf16:
+        X = X.to(torch.bfloat16)
+    K = grm_t.gram_panel(X, device=CPU)
+    for use_pallas in (False, True):
+        assert torch.equal(grm_t.gram_centered_device(X, use_pallas=use_pallas, device=CPU), K)
+    Xj = X.float().numpy()
+    _close_centered(K, grm_jax.gram_centered_device(jnp.asarray(Xj, jnp.bfloat16) if bf16 else Xj), X)
 
 
 def test_gram_schedules_cuda_without_cuda_raise(sim_small):
