@@ -115,6 +115,11 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
    `main(device="cuda")` at their own sizes, each against `main(device="cpu")`
    (held-out cor, CV folds, the gwasols top 20, GEBVs, the sharded GRMs
    against the single-device `gram_auto`), with the kernels each launched.
+19. the port's bench (`bench_phase`): `bench_torch.py --section headline`
+   (its one line within 10 % of phase 5's SNPs/s, its check passed, K1
+   launched in the child), `--section linkprobe` (one or two lines) and
+   `main()` with GBM_BENCH_HEADLINE_ONLY=1 (the last stdout line the
+   headline's), each in a subprocess whose launches its own notes count.
 
 Launch counters are reset after the comparisons of phases 3-4 and K3 and read
 after phase 9; every kernel must have launched on that main path. Then K3 is
@@ -124,7 +129,7 @@ and read after it, and every kernel must have launched there too; so do
 phases 11 (K2 must launch), 12 (K1 or K2 must launch), 13 (K2 and K3 must
 launch), 14 (no hand kernel on its path), 15 (K1 and K2 must launch), 16
 (K1, K2 and K3 must launch), 17 (K2 must launch) and 18 (K1, K2 and K3 must
-launch).
+launch); phase 19's children count theirs (K1 must launch).
 After each of phases 5-9 and 10 to 18 is read, K1 and K2
 are held against their plain versions at every operand shape, and K3 at
 every (folds, bs, K), the phase launched them at that no earlier check held (`hold_launched_shapes`). Then phase 7's
@@ -724,47 +729,13 @@ CHOL_TOL = 5e-4
 
 def headline_split(D, y, wall_ms: float, card: str) -> tuple:
     """The headline step `gblup_solve_lower(gram_dosage_lower(D), y, LAM)`
-    cut into its stages, each timed by CUDA events on the output of the one
-    before; returns (the centered lower triangle, the GEBVs, {stage: (ms,
-    bound_ms, bound_by)})."""
-    import torch
-
-    from genomicbreedingmodels_tpu_torch.kernels.gram_tri import gram_tri_int8
-    from genomicbreedingmodels_tpu_torch.ops.grm import _center_gram_lower
-
+    cut into its stages (`bench_torch.headline_split`), each timed by CUDA
+    events on the output of the one before; returns (the centered lower
+    triangle, the GEBVs, {stage: (ms, bound_ms, bound_by)})."""
+    bench = load_script("bench_torch", ".")
+    Kc, gebv, stages = bench.headline_split(D, y, LAM, lambda fn: cuda_ms(fn, reps=10))
+    out = {name: (ms,) + bound(ops, PEAK[peak], nbytes) for name, (ms, ops, peak, nbytes) in stages.items()}
     n, p = D.shape
-    n2 = float(n) * n
-    out = {}
-
-    def stage(name, fn, reps, ops, peak, nbytes):
-        res = fn()
-        ms = cuda_ms(fn, reps=reps)
-        out[name] = (ms,) + bound(ops, PEAK[peak], nbytes)
-        return res
-
-    L32 = stage("K1 (gram_tri_int8)", lambda: gram_tri_int8(D, 2), 10,
-                n * (n + 1) * p, "int8", n * p + 2.0 * n * (n + 1))
-    Lf = stage("epilogue (int32 -> f32, / ploidy²)", lambda: L32.to(torch.float32) / 4.0, 10,
-               n2, "f32", 8 * n2)
-    Kc = stage("centering (_center_gram_lower)", lambda: _center_gram_lower(Lf), 10,
-               6 * n2, "f32", 8 * n2)
-
-    def mirror():
-        A = torch.tril(Kc) + torch.tril(Kc, -1).T
-        A.diagonal().add_(LAM)
-        return A
-
-    A = stage("mirror + diagonal add", mirror, 10, n2, "f32", 8 * n2)
-    L, info = stage("cholesky_ex (potrf)", lambda: torch.linalg.cholesky_ex(A), 10,
-                    n * n2 / 3, "f32", 8 * n2)
-
-    def solve():
-        mu = y.mean()
-        yc = y - mu
-        alpha = torch.cholesky_solve(yc.reshape(n, 1), L).reshape(n) / (info == 0)
-        return yc - LAM * alpha + mu
-
-    gebv = stage("cholesky_solve (potrs, 1 rhs) + GEBV", solve, 10, 2 * n2, "f32", 4 * n2 + 12 * n)
     total = sum(v[0] for v in out.values())
     for name, (ms, b_ms, by) in out.items():
         print(f"  headline stage {name}: {ms:.3f} ms ({ms / total:.1%} of the sum), bound "
@@ -774,7 +745,6 @@ def headline_split(D, y, wall_ms: float, card: str) -> tuple:
           f"{total - out['K1 (gram_tri_int8)'][0]:.3f} ms {card}")
     check(abs(total / wall_ms - 1.0) <= HEAD_SPLIT_TOL,
           f"the headline's stages sum to within {HEAD_SPLIT_TOL:.0%} of its wall median")
-    del L32, Lf, A, L
     return Kc, gebv, out
 
 
@@ -2307,6 +2277,70 @@ def examples_phase(gbm, dev, card: str, D_called, cpu_runs: dict, width=(2048, 3
     return dict(gbm.LAUNCHES), times, per_example
 
 
+# Phase 19: the port's bench (`bench_torch.py`) in subprocesses, as a user
+# runs it. Its headline line's SNPs/s is held within BENCH_HEAD_GAP of phase
+# 5's; its children count their own kernel launches (`# <section> launches`).
+BENCH_HEAD_GAP = 0.10
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def bench_launches(stderr: str, section: str, kernels: dict) -> dict:
+    """{kernel name: count} from a bench section's `# <section> launches K1=.. K2=.. K3=..`
+    note; `kernels` is the bench's {kernel name: K1/K2/K3}."""
+    names = {short: name for name, short in kernels.items()}
+    for line in stderr.splitlines():
+        if line.startswith(f"# {section} launches "):
+            pairs = (w.split("=") for w in line.split()[3:3 + len(names)])
+            return {names[k]: int(v) for k, v in pairs}
+    return dict.fromkeys(kernels, 0)
+
+
+def bench_phase(card: str, head_snps: float, timeout: float = 300.0) -> dict:
+    """Phase 19: `bench_torch.py` run as a user runs it, each in a
+    subprocess: (a) `--section headline`: one line of the four keys, its
+    SNPs/s within BENCH_HEAD_GAP of phase 5's `head_snps`, exit 0 (its check
+    against the plain path passed) and K1 launched; (b) `--section
+    linkprobe`: one or two lines of the four keys; (c) `main()` with
+    GBM_BENCH_HEADLINE_ONLY=1: exit 0 and the last stdout line the
+    headline's. Returns the kernels the children launched."""
+    import os
+
+    script = Path(__file__).resolve().parent / "bench_torch.py"
+    bench_mod = load_script("bench_torch", ".")
+    kernels = bench_mod.KERNELS
+
+    def bench(*args, env=None):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(script), *args], capture_output=True, text=True,
+                           timeout=timeout, env={**os.environ, **(env or {})})
+        lines = r.stdout.strip().splitlines()
+        rows = [json.loads(ln) for ln in lines]
+        check(all(set(d) == BENCH_KEYS for d in rows), f"bench_torch.py {' '.join(args)}: four-key lines")
+        return r, rows, time.perf_counter() - t0
+
+    r, rows, dt = bench("--section", "headline")
+    launched = bench_launches(r.stderr, "headline", kernels)
+    gap = rows[0]["value"] / head_snps - 1.0 if len(rows) == 1 else float("nan")
+    print(f"phase 19 (a) bench_torch.py --section headline: exit {r.returncode}, {len(rows)} line, "
+          f"{rows[0]['value'] if rows else float('nan'):.6g} SNPs/s against phase 5's {head_snps:.6g} "
+          f"({gap:+.2%}), launches {launched}, {dt:.1f} s {card}")
+    check(r.returncode == 0 and len(rows) == 1 and abs(gap) <= BENCH_HEAD_GAP,
+          "phase 19 (a): the bench's headline passed its check, within 10 % of phase 5's")
+    check(launched["gram_tri_int8"] > 0, "phase 19 (a): the bench's headline launched K1")
+    r, rows, dt = bench("--section", "linkprobe")
+    print(f"phase 19 (b) bench_torch.py --section linkprobe: exit {r.returncode}, "
+          + "; ".join(f"{d['value']:.6g} {d['unit']}" for d in rows) + f", {dt:.1f} s {card}")
+    check(r.returncode == 0 and len(rows) in (1, 2), "phase 19 (b): the link probe's lines")
+    r, rows, dt = bench(env={"GBM_BENCH_HEADLINE_ONLY": "1"})
+    main_launched = bench_launches(r.stderr, "headline", kernels)
+    last = rows[-1] if rows else {}
+    print(f"phase 19 (c) GBM_BENCH_HEADLINE_ONLY=1 bench_torch.py: exit {r.returncode}, last line "
+          f"{json.dumps(last)}, {dt:.1f} s {card}")
+    check(r.returncode == 0 and last.get("metric", "").startswith(bench_mod.HEADLINE_METRIC + " (n=")
+          and last.get("value", 0) > 0, "phase 19 (c): main()'s last line is the headline's")
+    return {k: launched[k] + main_launched[k] for k in launched}
+
+
 def k2_shape_times(shapes, gen, card: str, phase: str, mm_bf16, bf16_lib: str) -> list:
     """K2 timed by CUDA events at each (dtype, n, p) operand shape it was
     launched at in `phase`, on random panels of that shape, beside its bound,
@@ -2611,6 +2645,7 @@ def main() -> int:
     check(finite and gebv.shape == (n,) and rel <= GEBV_TOL, "headline GEBV vs plain path")
     t = wall_median_s(step, reps=5)
     t_plain = wall_median_s(plain_step, reps=3)
+    head_snps = n * p / t  # phase 19 holds the bench's headline line to it
     print(f"headline GRM+GBLUP {n}x{p} int8 (K1 + cholesky, lam={LAM:g}): median {t * 1e3:.3f} ms, "
           f"{n * p / t:.4g} SNPs/s; plain path {t_plain * 1e3:.3f} ms, "
           f"{n * p / t_plain:.4g} SNPs/s {card}")
@@ -2831,6 +2866,12 @@ def main() -> int:
         check(ex_launches[name] > 0, f"{name} launched in phase 18")
     hold_launched_shapes(held, gen, "phase 18")
 
+    # -- 19. the port's bench in subprocesses (their launches counted in the children) -------
+    t0 = time.perf_counter()
+    bench_launched = bench_phase(card, head_snps)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s; launches in phase 19's children: "
+          f"{bench_launched} {card}")
+
     # Phase 7's question, asked last: does the device or the host set the
     # pace at size? The same short call without and then under the profiler.
     # The profiler slows the host, so the device time is also set against
@@ -2877,15 +2918,17 @@ def main() -> int:
     records["gram_tri_float"]["phase17_ms"] = gram_times
     records["gram_tri_float"]["phase18_default_ms"] = ex_times
     for name in sources:
+        records[name]["phase19_launches"] = bench_launched[name]
         records[name]["phase18_launches"] = ex_launches[name]
         records[name]["phase18_per_example"] = {ex: c[name] for ex, c in ex_kernels.items()}
     records["gram_tri_int8"]["headline_stages"] = {k: v[0] for k, v in head_stages.items()}
     records["gram_tri_int8"]["solvers"] = solvers
-    kernels = [  # launches: phases 5-9, 10, 11, ..., 18, each counted from zero
+    kernels = [  # launches: phases 5-9, 10, 11, ..., 19, each counted from zero
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[name] for c in (launches, cv_launches, gwas_launches, mt_launches,
                                            fold_launches, epi_launches, ooc_launches,
-                                           mesh_launches, gram_launches, ex_launches)),
+                                           mesh_launches, gram_launches, ex_launches,
+                                           bench_launched)),
          **records[name]}
         for name, (src, rep) in sources.items()
     ]
