@@ -1,0 +1,172 @@
+"""Route `cv_sweep`: a closed loop of whole `cvbulk_batched` calls.
+
+One host panel, made on the device from the seed in set-up and held as the
+program's `Genomes`; every call gets a new trait (1 % causal loci with
+normal effects, h² ≈ 0.5, as `bench_torch.py:cv_inputs` makes it), made in
+set-up, and its own fold seed, as a breeder runs CV trait by trait on one
+genotyped population. The program caches the panel and its Gram on the
+device after the first call, so the warm-up pays them.
+
+Config keys: `n_entries`, `n_loci`, `models`, `n_replications`, `n_folds`.
+Traffic keys: `warmup_calls`, `trace_calls`, `min_call_s` (sizes the traits
+made in set-up: a window that outruns them reuses traits), `check_calls`
+(calls of the window compared with the reference, drawn from the seed),
+`causal_share`, and `limits` of the numbers compared.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from types import SimpleNamespace
+
+import numpy as np
+
+import harness
+
+
+def _panel(freq: np.ndarray):
+    """The program's Genomes of an (n, p) frequency panel, and its Phenomes
+    of one trait vector."""
+    import genomicbreedingmodels_tpu_torch as gbm
+
+    n, p = freq.shape
+    genomes = gbm.Genomes(entries=np.array([f"e{i:05d}" for i in range(n)]),
+                          populations=np.array(["pop_1"] * n),
+                          loci_alleles=np.array([f"chr1\t{i}\tA|T\tA" for i in range(p)]),
+                          allele_frequencies=freq)
+
+    def phenomes(y):
+        return gbm.Phenomes(entries=genomes.entries, populations=genomes.populations,
+                            traits=np.array(["t"]), phenotypes=np.asarray(y).reshape(n, 1))
+
+    return genomes, phenomes
+
+
+def setup(ctx) -> None:
+    import importlib
+
+    import torch
+
+    batched = importlib.import_module("genomicbreedingmodels_tpu_torch.cv.batched")
+    cfg, tr, dev = ctx.config, ctx.traffic, ctx.device
+    n, p = cfg["n_entries"], cfg["n_loci"]
+    cap = math.ceil(ctx.seconds / tr["min_call_s"]) + 1
+    calls = cap + tr["trace_calls"] + tr["warmup_calls"]
+    gen = torch.Generator(device=dev).manual_seed(harness.subseed(ctx.seed, 1))
+    with ctx.span("inputs"):
+        X = torch.rand((n, p), dtype=torch.float32, device=dev, generator=gen)
+        B = torch.randn((p, calls), device=dev, generator=gen)
+        B *= torch.rand((p, calls), device=dev, generator=gen) < tr["causal_share"]
+        G = X.double() @ B.double()
+        Y = G + torch.randn((n, calls), dtype=torch.float64, device=dev, generator=gen) * G.std(dim=0)
+        freq = X.cpu().numpy()
+        traits = Y.T.cpu().numpy()
+    genomes, phenomes = _panel(freq)
+    ctx.state = st = SimpleNamespace(
+        X=X, traits=traits, genomes=genomes, phenomes=[phenomes(y) for y in traits], cap=cap,
+        fold_seeds=[harness.subseed(ctx.seed, 2, i) for i in range(calls)], batched=batched,
+        kw=dict(models=tuple(cfg["models"]), n_replications=cfg["n_replications"], n_folds=cfg["n_folds"],
+                store_effects=False, device=dev),
+        fits=len(cfg["models"]) * cfg["n_replications"] * cfg["n_folds"], results=[])
+    ctx.marks.append(("inputs", time.perf_counter()))
+    for j in range(tr["warmup_calls"]):  # the first call uploads the panel and makes its Gram
+        _call(ctx, st, cap + tr["trace_calls"] + j)
+    ctx.marks.append(("warm-up", time.perf_counter()))
+
+
+def _call(ctx, st, i: int):
+    with ctx.span("cv_call"):
+        cvs, _ = st.batched.cvbulk_batched(st.genomes, st.phenomes[i], seed=st.fold_seeds[i], **st.kw)
+    return cvs
+
+
+def window(ctx) -> None:
+    """Calls until `--seconds` have passed since the first one started; the
+    window ends with the last call's return (its records are host objects)."""
+    st = ctx.state
+    lat, ctx.stages = [], []
+    t_first = time.perf_counter()
+    ctx.setup_s = t_first - ctx.t0
+    deadline = t_first + ctx.seconds
+    k, t_done, fits = 0, t_first, 0
+    while t_done < deadline:
+        t_issue = time.perf_counter()
+        i = k % st.cap
+        cvs = _call(ctx, st, i)
+        t_done = time.perf_counter()
+        lat.append(t_done - t_issue)
+        ctx.stages.append({s: v["total_s"] for s, v in st.batched.LAST_TIMER.summary().items()})
+        st.results.append((i, cvs))
+        fits += len(cvs)
+        k += 1
+    ctx.window = {"seconds": t_done - t_first, "requests": k, "latencies_s": lat, "work": float(fits)}
+    ctx.failed = sum(st.fits - len(cvs) + sum(not np.isfinite(list(cv.metrics.values())).all() for cv in cvs)
+                     for _, cvs in st.results)
+    if k > st.cap:
+        harness.note(f"# the window's {k} calls outran its {st.cap} traits: traits were reused")
+    rows = [("call", lat)] + [(s, [c.get(s, 0.0) for c in ctx.stages]) for s in sorted({s for c in ctx.stages for s in c})]
+    harness.note("# seconds a call, least / median / most: " + "; ".join(
+        f"{s} {min(v):.4f} / {float(np.median(v)):.4f} / {max(v):.4f}" for s, v in rows))
+
+
+def trace_count(ctx) -> int:
+    return ctx.traffic["trace_calls"]
+
+
+def traced_request(ctx, j: int) -> None:
+    _call(ctx, ctx.state, ctx.state.cap + j)
+
+
+def release(ctx) -> None:
+    """Drop the program's device cache of the panel and its Gram."""
+    ctx.state.batched._PANEL_CACHE.clear()
+
+
+def records(cvs) -> list[dict]:
+    """The program's CV records in the reference's terms (rows by entry name)."""
+    def rows(entries):
+        return np.array(sorted(int(e[1:]) for e in entries), dtype=np.int64)
+
+    return [{"rep": cv.replication, "fold": cv.fold, "model": cv.fit.model, "train": rows(cv.fit.entries),
+             "val": rows(cv.validation_entries), "lam": float(cv.fit.extras["lambda"]),
+             "pred_train": np.asarray(cv.fit.y_pred, dtype=np.float64),
+             "pred_val": np.asarray(cv.y_pred, dtype=np.float64), "y_val": np.asarray(cv.y_true),
+             "metrics_val": cv.metrics, "metrics_train": cv.fit.metrics} for cv in cvs]
+
+
+def _checked_calls(ctx) -> list[tuple[int, list]]:
+    """(trait, records) of the window's calls compared with the reference,
+    drawn from the seed."""
+    done = ctx.state.results
+    rng = np.random.default_rng(harness.subseed(ctx.seed, 3))
+    pick = rng.choice(len(done), size=min(ctx.traffic["check_calls"], len(done)), replace=False)
+    return [done[j] for j in sorted(pick)]
+
+
+def _readings(ctx, control: bool) -> dict:
+    from reference import cv as ref
+
+    st, cfg = ctx.state, ctx.config
+    per_call: dict[str, list[float]] = {}
+    for i, cvs in _checked_calls(ctx):
+        args = (st.X, st.traits[i], st.fold_seeds[i], cfg["n_replications"], cfg["n_folds"], cfg["models"])
+        sol = ref.solve(*args)
+        recs = ref.records_of_control(ref.solve(*args, control=True), st.traits[i]) if control else records(cvs)
+        for k, v in ref.compare(recs, sol, st.traits[i]).items():
+            per_call.setdefault(k, []).append(v)
+    return {k: (sum(v) / len(v) if k in ref.POOLED else max(v)) for k, v in per_call.items()}
+
+
+def check(ctx) -> dict:
+    """`check_calls` calls of the window, drawn from the seed, against the
+    float64 reference; returns {name: (value, limit)}: the worst of each
+    number over the calls compared, or the mean of a pooled one."""
+    lim = ctx.traffic["limits"]
+    return {k: (v, lim[k]) for k, v in _readings(ctx, control=False).items()}
+
+
+def control(ctx) -> dict:
+    """The control's readings on the same calls: the reference one precision
+    below the configuration's, in the program's place."""
+    return _readings(ctx, control=True)

@@ -1,0 +1,54 @@
+"""The benchmark's tests: run them with `python -m pytest benchmark/tests -q`
+from the root of a checkout (CPU; tests marked `cuda` skip without a card).
+They put the benchmark's folder and the checkout's root on `sys.path`, as
+`benchmark/run.py` does."""
+
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+BENCH = Path(__file__).resolve().parents[1]
+for p in (str(BENCH.parent), str(BENCH)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+# Tiny sizes of each cell for CPU runs: (config overrides, traffic overrides).
+TINY = {
+    "gblup-refit-int8": ({"n_entries": 96, "n_loci": 1024},
+                         {"n_causal": 16, "trace_refits": 5, "min_refit_s": 1e-4}),
+    "gblup-refit-freq": ({"n_entries": 96, "n_loci": 1024},
+                         {"n_causal": 16, "trace_refits": 5, "min_refit_s": 1e-4}),
+    "cv-linear": ({"n_entries": 120, "n_loci": 600},
+                  {"trace_calls": 2, "min_call_s": 0.2, "warmup_calls": 1, "check_calls": 1}),
+}
+
+
+def run_tiny(workload: str, seed: int = 7, seconds: float = 0.3, trace: int = 0):
+    """(exit code, last stdout line as a dict or None) of a CPU run of a cell
+    at its tiny size, in this process."""
+    import io
+    from contextlib import redirect_stdout
+
+    import run
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = run.main(["--workload", workload, "--seed", str(seed), "--seconds", str(seconds),
+                       "--trace", str(trace)], require_chip=False, device="cpu",
+                      config_overrides=TINY[workload][0], traffic_overrides=TINY[workload][1],
+                      t0=time.perf_counter())
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    import json
+
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the control's TF32 products exist only there")
+    return torch.device("cuda", 0)
