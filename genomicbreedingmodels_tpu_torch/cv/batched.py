@@ -30,6 +30,13 @@ GBLUP folds share one Gram matrix:
 Fold-label RNG matches `cvbulk` (uniform with replacement, seeded), so the
 fold composition of the two engines is identical for a given seed.
 
+Spans (utils/logging.py, recorded inside a `tracing()` block): a call is
+`gbm.cv`; its `LAST_TIMER` stages are `gbm.cv.<stage>`; inside them
+`gbm.cv.eigh` (the folds' batched eigh), `gbm.cv.path` (the λ path and its
+criterion), `gbm.cv.readback` (each read-back of a fold batch) and, per
+lasso fold, `gbm.cv.lasso.fold` with `gbm.cv.lasso.power_iter` and
+`gbm.cv.lasso.fista` inside it.
+
 `mesh=` (parallel/mesh.py; every rank calls with the same arguments) spreads
 each fold batch over the mesh's largest axis (the first on a tie), as the
 JAX `_solve_folds_meshed` / `_lasso_folds_meshed` do: every rank builds the
@@ -53,7 +60,7 @@ from ..ops import linalg
 from ..ops.metrics import metrics
 from ..parallel.mesh import fold_share
 from ..utils.devcache import SingleSlotCache, host_fingerprint
-from ..utils.logging import StageTimer
+from ..utils.logging import StageTimer, span
 from .harness import _common_checks
 
 # Stage timing of the most recent cvbulk_batched call.
@@ -98,16 +105,17 @@ def _masked_eigh(K, y, W):
     # (a fold share of a mesh rank gives mesh=None's bits): row sums and row
     # vectors times matrices, not W·y or a batched matrix times a column,
     # which the host rounds differently for different F.
-    n_w = W.sum(1)
-    mean_y = (W * y).sum(1) / n_w
-    yc = (y[None] - mean_y[:, None]) * W
-    # f32 on the card too, unlike `_eigh_device`: the ridge shift and gblup's
-    # smallest ratio damp the small eigenpairs, and at the cv cell (15 x
-    # 2048²) f64 moved validation y_pred by < 2e-6·std(y)
-    # (scripts/torch_cv_fold_eigh.py).
-    s, U = torch.linalg.eigh(K[None] * W[:, :, None] * W[:, None, :])
-    s = torch.clamp(s, min=0.0)
-    return n_w, mean_y, s, U, (yc[:, None, :] @ U)[:, 0]
+    with span("gbm.cv.eigh"):
+        n_w = W.sum(1)
+        mean_y = (W * y).sum(1) / n_w
+        yc = (y[None] - mean_y[:, None]) * W
+        # f32 on the card too, unlike `_eigh_device`: the ridge shift and gblup's
+        # smallest ratio damp the small eigenpairs, and at the cv cell (15 x
+        # 2048²) f64 moved validation y_pred by < 2e-6·std(y)
+        # (scripts/torch_cv_fold_eigh.py).
+        s, U = torch.linalg.eigh(K[None] * W[:, :, None] * W[:, None, :])
+        s = torch.clamp(s, min=0.0)
+        return n_w, mean_y, s, U, (yc[:, None, :] @ U)[:, 0]
 
 
 def _fold_path(K, W, U, Ut_y, mean_y, d):
@@ -151,21 +159,23 @@ def _solve_folds(K, y, W, grid, kind: str):
     dimensions: crit(r) = Σᵢ ωᵢ log(sᵢ + r) + (Σω) log Σᵢ ỹᵢ²/(sᵢ + r).
     """
     n_w, mean_y, s, U, Ut_y = _masked_eigh(K, y, W)
-    if kind == "ridge":
-        d = s[:, None, :] + grid[None, :, None] * n_w[:, None, None]
-    else:
-        d = s[:, None, :] + grid[None, :, None]
-    preds, gammas = _fold_path(K, W, U, Ut_y, mean_y, d)
-    if kind == "ridge":
-        edf = (s[:, None, :] / d).sum(-1)
-        res_tr = (((y[None, None, :] - preds) * W[:, None, :]) ** 2).sum(-1)
-        crit = (res_tr / n_w[:, None]) / torch.clamp((1.0 - edf / n_w[:, None]) ** 2, min=1e-6)
-    else:
-        wU = (W[:, None, :] @ (U * U))[:, 0]  # per-eigenpair training support
-        quad = torch.clamp((Ut_y[:, None, :] ** 2 / d).sum(-1), min=1e-30)
-        crit = ((wU[:, None, :] * torch.log(torch.clamp(d, min=1e-30))).sum(-1)
-                + wU.sum(-1)[:, None] * torch.log(quad))
-    return (preds.cpu().numpy(), gammas, crit.cpu().numpy())
+    with span("gbm.cv.path"):
+        if kind == "ridge":
+            d = s[:, None, :] + grid[None, :, None] * n_w[:, None, None]
+        else:
+            d = s[:, None, :] + grid[None, :, None]
+        preds, gammas = _fold_path(K, W, U, Ut_y, mean_y, d)
+        if kind == "ridge":
+            edf = (s[:, None, :] / d).sum(-1)
+            res_tr = (((y[None, None, :] - preds) * W[:, None, :]) ** 2).sum(-1)
+            crit = (res_tr / n_w[:, None]) / torch.clamp((1.0 - edf / n_w[:, None]) ** 2, min=1e-6)
+        else:
+            wU = (W[:, None, :] @ (U * U))[:, 0]  # per-eigenpair training support
+            quad = torch.clamp((Ut_y[:, None, :] ** 2 / d).sum(-1), min=1e-30)
+            crit = ((wU[:, None, :] * torch.log(torch.clamp(d, min=1e-30))).sum(-1)
+                    + wU.sum(-1)[:, None] * torch.log(quad))
+    with span("gbm.cv.readback"):
+        return (preds.cpu().numpy(), gammas, crit.cpu().numpy())
 
 
 def _lambda_max_device(X, y, w):
@@ -181,18 +191,21 @@ def _lasso_fold(X, y, w, lambdas, n_iter: int = 300):
     training rows; GCV with active-set df for training-only λ selection.
 
     Returns (preds (L, n), B (p, L), crit (L,), b0 (L,))."""
-    n_tr = w.sum()
-    mean_y = (w * y).sum() / n_tr
-    mean_x = (w[:, None] * X).sum(0) / n_tr
-    Z = X - mean_x[None, :]
-    step = 1.0 / torch.clamp(linalg._power_iter_lmax(w[:, None] * Z) / n_tr, min=1e-12)
-    B = linalg._lasso_fista_batch(Z, y - mean_y, w, lambdas, step, n_iter)  # (p, L)
-    preds = mean_y + Z @ B  # (n, L)
-    mse = (((y[:, None] - preds) * w[:, None]) ** 2).sum(0) / n_tr
-    df = (B.abs() > 1e-8).sum(0).to(torch.float32)
-    gcv = mse / torch.clamp((1.0 - torch.minimum(df, n_tr - 1.0) / n_tr) ** 2, min=1e-6)
-    b0 = mean_y - mean_x @ B
-    return preds.T, B, gcv, b0
+    with span("gbm.cv.lasso.fold"):
+        n_tr = w.sum()
+        mean_y = (w * y).sum() / n_tr
+        mean_x = (w[:, None] * X).sum(0) / n_tr
+        Z = X - mean_x[None, :]
+        with span("gbm.cv.lasso.power_iter"):
+            step = 1.0 / torch.clamp(linalg._power_iter_lmax(w[:, None] * Z) / n_tr, min=1e-12)
+        with span("gbm.cv.lasso.fista"):
+            B = linalg._lasso_fista_batch(Z, y - mean_y, w, lambdas, step, n_iter)  # (p, L)
+        preds = mean_y + Z @ B  # (n, L)
+        mse = (((y[:, None] - preds) * w[:, None]) ** 2).sum(0) / n_tr
+        df = (B.abs() > 1e-8).sum(0).to(torch.float32)
+        gcv = mse / torch.clamp((1.0 - torch.minimum(df, n_tr - 1.0) / n_tr) ** 2, min=1e-6)
+        b0 = mean_y - mean_x @ B
+        return preds.T, B, gcv, b0
 
 
 def _lasso_folds(X, y, W, lambdas):
@@ -201,7 +214,8 @@ def _lasso_folds(X, y, W, lambdas):
     centered copies of the panel). Returns numpy (preds (F, L, n),
     B (F, p, L), crit (F, L), b0 (F, L))."""
     outs = [_lasso_fold(X, y, W[f], lambdas) for f in range(W.shape[0])]
-    return tuple(torch.stack(o).cpu().numpy() for o in zip(*outs))
+    with span("gbm.cv.readback"):
+        return tuple(torch.stack(o).cpu().numpy() for o in zip(*outs))
 
 
 def cvbulk_batched(
@@ -249,55 +263,56 @@ def cvbulk_batched(
     lambdas = np.asarray(lambdas, dtype=np.float64)  # reported as given; solved in float32
 
     global LAST_TIMER
-    timer = LAST_TIMER = StageTimer()
+    with span("gbm.cv", dev):
+        timer = LAST_TIMER = StageTimer(span_prefix="gbm.cv.")
 
-    with timer.stage("h2d+gram"):
-        # Device panel + Gram cached across calls on the same host panel and
-        # device (single slot, fingerprint-keyed).
-        key = (host_fingerprint(genomes.allele_frequencies), str(dev))
-        hit = _PANEL_CACHE.get(key)
-        if hit is None:
-            X = as_tensor(genomes.allele_frequencies, dev, torch.float32)
-            K, Z = _gram(X)
-            tr_scale = float(K.diagonal().sum()) / n  # gblup ratio grid scale (a read-back)
-            hit = _PANEL_CACHE.put(key, (X, K, Z, tr_scale))
-        X, K, Z, tr_scale = hit
+        with timer.stage("h2d+gram"):
+            # Device panel + Gram cached across calls on the same host panel and
+            # device (single slot, fingerprint-keyed).
+            key = (host_fingerprint(genomes.allele_frequencies), str(dev))
+            hit = _PANEL_CACHE.get(key)
+            if hit is None:
+                X = as_tensor(genomes.allele_frequencies, dev, torch.float32)
+                K, Z = _gram(X)
+                tr_scale = float(K.diagonal().sum()) / n  # gblup ratio grid scale (a read-back)
+                hit = _PANEL_CACHE.put(key, (X, K, Z, tr_scale))
+            X, K, Z, tr_scale = hit
 
-    cvs: List[CV] = []
-    notes: List[str] = []
-    rng = np.random.default_rng(seed)  # one stream: fold labels match cvbulk
+        cvs: List[CV] = []
+        notes: List[str] = []
+        rng = np.random.default_rng(seed)  # one stream: fold labels match cvbulk
 
-    for idx_trait, trait in enumerate(phenomes.traits.tolist()):
-        phi = np.asarray(phenomes.phenotypes[:, idx_trait], dtype=np.float64)
-        finite = np.isfinite(phi)
-        # ALL (replication, fold) masks of this trait up front: the sweep is
-        # then F = reps × folds problems in one batch.
-        w_list, v_list, tags = [], [], []
-        for i in range(1, n_replications + 1):
-            fold_labels = rng.integers(1, n_folds + 1, size=n)
-            for j in range(1, n_folds + 1):
-                tr_mask = (fold_labels != j) & finite
-                va_mask = (fold_labels == j) & finite
-                if tr_mask.sum() < 2 or va_mask.sum() < 1:
-                    notes.append(";".join(["too_many_missing", trait, f"replication_{i}", f"fold_{j}"]))
-                    continue
-                if np.var(phi[tr_mask], ddof=1) < 1e-20:
-                    notes.append(";".join(["zero_variance", trait, f"replication_{i}", f"fold_{j}"]))
-                    continue
-                w_list.append(tr_mask.astype(np.float32))
-                v_list.append(va_mask.astype(np.float32))
-                tags.append((f"replication_{i}", f"fold_{j}"))
-        if not w_list:
-            continue
-        cvs.extend(
-            _run_models_on_masks(
-                genomes, phi, str(trait), np.stack(w_list), np.stack(v_list), tags, models,
-                X=X, K=K, Z=Z, lambdas=lambdas, tr_scale=tr_scale,
-                store_effects=store_effects, seed=seed, mcmc_n_iter=mcmc_n_iter,
-                mcmc_n_burnin=mcmc_n_burnin, timer=timer, mesh=mesh,
+        for idx_trait, trait in enumerate(phenomes.traits.tolist()):
+            phi = np.asarray(phenomes.phenotypes[:, idx_trait], dtype=np.float64)
+            finite = np.isfinite(phi)
+            # ALL (replication, fold) masks of this trait up front: the sweep is
+            # then F = reps × folds problems in one batch.
+            w_list, v_list, tags = [], [], []
+            for i in range(1, n_replications + 1):
+                fold_labels = rng.integers(1, n_folds + 1, size=n)
+                for j in range(1, n_folds + 1):
+                    tr_mask = (fold_labels != j) & finite
+                    va_mask = (fold_labels == j) & finite
+                    if tr_mask.sum() < 2 or va_mask.sum() < 1:
+                        notes.append(";".join(["too_many_missing", trait, f"replication_{i}", f"fold_{j}"]))
+                        continue
+                    if np.var(phi[tr_mask], ddof=1) < 1e-20:
+                        notes.append(";".join(["zero_variance", trait, f"replication_{i}", f"fold_{j}"]))
+                        continue
+                    w_list.append(tr_mask.astype(np.float32))
+                    v_list.append(va_mask.astype(np.float32))
+                    tags.append((f"replication_{i}", f"fold_{j}"))
+            if not w_list:
+                continue
+            cvs.extend(
+                _run_models_on_masks(
+                    genomes, phi, str(trait), np.stack(w_list), np.stack(v_list), tags, models,
+                    X=X, K=K, Z=Z, lambdas=lambdas, tr_scale=tr_scale,
+                    store_effects=store_effects, seed=seed, mcmc_n_iter=mcmc_n_iter,
+                    mcmc_n_burnin=mcmc_n_burnin, timer=timer, mesh=mesh,
+                )
             )
-        )
-    return cvs, notes
+        return cvs, notes
 
 
 def _run_models_on_masks(
@@ -316,7 +331,7 @@ def _run_models_on_masks(
     y = as_tensor(np.where(finite, phi, 0.0), dev, torch.float32)
     Wt = as_tensor(W, dev, torch.float32)
     cvs: List[CV] = []
-    timer = timer if timer is not None else StageTimer()
+    timer = timer if timer is not None else StageTimer(span_prefix="gbm.cv.")
     x_mean = genomes.allele_frequencies.mean(axis=0) if store_effects else None
     for model in models:
         if model in _GIBBS_MODEL_KEYS:

@@ -26,6 +26,13 @@ Conditioning: the substitutions apply explicit inverses of the diagonal
 blocks, which lose accuracy as κ(block)² where a triangular solve loses
 κ(block). Meant for well-conditioned mixed-model systems (K + λI with λ well
 above the noise floor); past κ ≈ 1e6 use the default path.
+
+Spans (utils/logging.py, recorded inside a `tracing()` block):
+`gblup_solve_lower` is `gbm.solve`; on its cuSOLVER path, inside it,
+`gbm.solve.mirror` (the triangle mirrored, λ on the diagonal),
+`gbm.solve.potrf` (`cholesky_ex`) and `gbm.solve.potrs` (`cholesky_solve`
+and the GEBVs). The counter `gbm.solve.not_pd` counts, on the device, the
+solves whose matrix was not positive definite (non-finite GEBVs).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..device import as_tensor
+from ..utils.logging import count, span, tracing_on
 
 __all__ = ["blocked_cho_solve", "blocked_cholesky", "gblup_solve_lower"]
 
@@ -109,16 +117,22 @@ def gblup_solve_lower(K_lower: torch.Tensor, y: torch.Tensor, lam: float,
     (cuSOLVER on the card); an integer `nb` runs `blocked_cho_solve` with it,
     as the JAX function does with its default nb=16.
     """
-    n = K_lower.shape[0]
-    mu = y.mean()
-    yc = y - mu
-    if nb is not None:
-        A = K_lower.clone()
-        A.diagonal().add_(lam)
-        alpha = blocked_cho_solve(A, yc, nb=nb, device=K_lower.device)
-        return yc - lam * alpha + mu
-    A = torch.tril(K_lower) + torch.tril(K_lower, -1).T
-    A.diagonal().add_(lam)
-    L, info = torch.linalg.cholesky_ex(A)
-    alpha = torch.cholesky_solve(yc.reshape(n, 1), L).reshape(n) / (info == 0)
-    return yc - lam * alpha + mu
+    with span("gbm.solve", K_lower.device):
+        n = K_lower.shape[0]
+        mu = y.mean()
+        yc = y - mu
+        if nb is not None:
+            A = K_lower.clone()
+            A.diagonal().add_(lam)
+            alpha = blocked_cho_solve(A, yc, nb=nb, device=K_lower.device)
+            return yc - lam * alpha + mu
+        with span("gbm.solve.mirror"):
+            A = torch.tril(K_lower) + torch.tril(K_lower, -1).T
+            A.diagonal().add_(lam)
+        with span("gbm.solve.potrf"):
+            L, info = torch.linalg.cholesky_ex(A)
+        if tracing_on():
+            count("gbm.solve.not_pd", info != 0)
+        with span("gbm.solve.potrs"):
+            alpha = torch.cholesky_solve(yc.reshape(n, 1), L).reshape(n) / (info == 0)
+            return yc - lam * alpha + mu

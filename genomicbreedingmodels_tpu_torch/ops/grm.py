@@ -28,6 +28,13 @@ CPU and, with TF32 off, on the card): `gram_recursive` (the 2x2 recursion),
 `gram_centered_blocked` (= `gram_centered`); `gram_centered_device` is
 `gram_panel` (K2) in both its modes, as the JAX default is its
 `gram_panel`. The headline and every model take K1 or K2.
+
+Spans (utils/logging.py, recorded inside a `tracing()` block):
+`gram_dosage_lower` and `gram_panel` are `gbm.grm`, inside it
+`gbm.grm.kernel` (the zeroed triangle and K1/K2's launch),
+`gbm.grm.epilogue` (K1's int32 -> f32 cast and 1/ploidy² scale),
+`gbm.grm.rowmeans` and `gbm.grm.center` (the centering) and
+`gbm.grm.mirror` (the freq path's mirrors).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from ..device import as_tensor
 from ..kernels.gram_tri import gram_tri_float, gram_tri_int8
+from ..utils.logging import span
 
 __all__ = [
     "center_gram",
@@ -84,11 +92,12 @@ def centering_terms(rm: torch.Tensor, dtype: torch.dtype):
 
 def _center(X: torch.Tensor, rm: torch.Tensor) -> torch.Tensor:
     """X - (rm_i + rm_j - gm) as `centering_terms` orders it, in a new tensor."""
-    a, b, c = centering_terms(rm, X.dtype)
-    H = X - a[:, None]
-    H -= b[None, :]
-    H -= c[:, None]
-    return H
+    with span("gbm.grm.center"):
+        a, b, c = centering_terms(rm, X.dtype)
+        H = X - a[:, None]
+        H -= b[None, :]
+        H -= c[:, None]
+        return H
 
 
 def center_gram(G: torch.Tensor) -> torch.Tensor:
@@ -97,15 +106,23 @@ def center_gram(G: torch.Tensor) -> torch.Tensor:
     Row means in float64, the correction as `_center` applies it; the result
     is made exactly symmetric by mirroring its lower triangle.
     """
-    H = _center(G, G.sum(dim=1, dtype=torch.float64) / G.shape[0])
-    return torch.tril(H) + torch.tril(H, -1).T
+    H = _center(G, _row_means(G))
+    with span("gbm.grm.mirror"):
+        return torch.tril(H) + torch.tril(H, -1).T
+
+
+def _row_means(G: torch.Tensor) -> torch.Tensor:
+    """Float64 row means of a full Gram."""
+    with span("gbm.grm.rowmeans"):
+        return G.sum(dim=1, dtype=torch.float64) / G.shape[0]
 
 
 def _row_means_lower(L: torch.Tensor) -> torch.Tensor:
     """Float64 row means of the symmetric Gram whose lower triangle is L
     (strict upper zero): rowsum + colsum - diag."""
-    return (L.sum(dim=1, dtype=torch.float64) + L.sum(dim=0, dtype=torch.float64)
-            - L.diagonal().to(torch.float64)) / L.shape[0]
+    with span("gbm.grm.rowmeans"):
+        return (L.sum(dim=1, dtype=torch.float64) + L.sum(dim=0, dtype=torch.float64)
+                - L.diagonal().to(torch.float64)) / L.shape[0]
 
 
 def _center_gram_lower(L: torch.Tensor) -> torch.Tensor:
@@ -142,10 +159,14 @@ def gram_panel(X, center: bool = True, device="cuda") -> torch.Tensor:
 
     `X` (numpy or tensor) is taken as f32 unless it is already bf16.
     """
-    bf16 = isinstance(X, torch.Tensor) and X.dtype == torch.bfloat16
-    X = as_tensor(X, device, torch.bfloat16 if bf16 else torch.float32)
-    G = _mirror(gram_tri_float(X.contiguous()))
-    return center_gram(G) if center else G
+    with span("gbm.grm", device):
+        bf16 = isinstance(X, torch.Tensor) and X.dtype == torch.bfloat16
+        X = as_tensor(X, device, torch.bfloat16 if bf16 else torch.float32)
+        with span("gbm.grm.kernel"):
+            G = gram_tri_float(X.contiguous())
+        with span("gbm.grm.mirror"):
+            G = _mirror(G)  # the triangle goes once the mirror is made
+        return center_gram(G) if center else G
 
 
 def gram_centered(X, block_cols: int = 262_144, device="cuda") -> torch.Tensor:
@@ -207,9 +228,14 @@ def gram_dosage_lower(D, ploidy: int = 2, device="cuda") -> torch.Tensor:
     one triangle (`ops/chol.py:gblup_solve_lower`). No host sync: K1 leaves
     the strict upper triangle zero, so the precondition needs no check.
     """
-    D = _dosage_tensor(D, device, "gram_dosage_lower")
-    L = gram_tri_int8(D, ploidy).to(torch.float32) / float(ploidy * ploidy)
-    return _center_gram_lower(L)
+    with span("gbm.grm", device):
+        D = _dosage_tensor(D, device, "gram_dosage_lower")
+        with span("gbm.grm.kernel"):
+            L = gram_tri_int8(D, ploidy)
+        with span("gbm.grm.epilogue"):
+            L = L.to(torch.float32)  # the int32 triangle goes before the scaled copy is made
+            L = L / float(ploidy * ploidy)
+        return _center_gram_lower(L)
 
 
 def gram_auto(X, ploidy: int = 2, center: bool = True, device="cuda") -> torch.Tensor:

@@ -672,3 +672,41 @@ def test_gram_centered_device_takes_k2_on_card(cuda_device, dtype, use_pallas):
     assert gram_tri.LAUNCHES["gram_tri_float"] == before + 1
     assert K.dtype == torch.float32
     assert torch.equal(K, grm.gram_panel(X, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel", ["int8", "bf16"])
+def test_refit_spans_time_the_card(cuda_device, panel):
+    """Inside `tracing()` a refit's spans carry device time on the card: the
+    parents cover their children, `gbm.grm.kernel` holds the kernel's one
+    launch, `gbm.solve.not_pd` reads 0 on a positive definite system, and
+    the GEBVs are the bits of the untraced refit."""
+    from genomicbreedingmodels_tpu_torch.ops import chol, grm
+    from genomicbreedingmodels_tpu_torch.utils import logging as tr
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    if panel == "int8":
+        X = torch.randint(0, 3, (1024, 8192), dtype=torch.int8, device=cuda_device, generator=g)
+
+        def refit():
+            return chol.gblup_solve_lower(grm.gram_dosage_lower(X, device=cuda_device), y, 819.2)
+    else:
+        X = torch.rand((1024, 8192), device=cuda_device, generator=g).to(torch.bfloat16)
+
+        def refit():
+            return chol.gblup_solve_lower(grm.gram_panel(X, device=cuda_device), y, 819.2)
+    y = torch.randn(1024, device=cuda_device, generator=g)
+    plain = refit()
+    tr.reset()
+    with tr.tracing():
+        traced = refit()
+    got = tr.collect()
+    tr.reset()
+    assert torch.equal(plain, traced)
+    spans = got["spans"]
+    assert all(s["device_s"] is not None and s["device_s"] > 0 for s in spans.values()), spans
+    for parent in ("gbm.grm", "gbm.solve"):
+        kids = sum(s["device_s"] for n, s in spans.items() if s["parent"] == parent)
+        assert kids <= spans[parent]["device_s"] * 1.001
+    assert got["counters"] == {"gbm.solve.not_pd": 0}
+    assert got["launches"]["gram_tri_int8" if panel == "int8" else "gram_tri_float"] == 1
