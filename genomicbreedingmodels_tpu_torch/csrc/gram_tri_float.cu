@@ -19,5 +19,13 @@ extern "C" int gbm_gram_tri_f32(const void* X, void* out, long long n, long long
 
 extern "C" int gbm_gram_tri_bf16(const void* X, void* out, long long n, long long p,
                                  void* stream) {
-  return gbm_sm90::launch<gbm_sm90::OpBF16>(X, out, n, p, stream);
+  return gbm_sm90::launch_bf16(X, out, n, p, stream);
+}
+
+// The same in the schedule named (quad != 0: 2x2 clusters, else one CTA per
+// tile) whatever the shape rule picks: to hold or time one against the other.
+extern "C" int gbm_gram_tri_bf16_schedule(const void* X, void* out, long long n, long long p, int quad,
+                                          void* stream) {
+  return quad ? gbm_sm90::launch<gbm_sm90::OpBF16Quad>(X, out, n, p, stream)
+              : gbm_sm90::launch<gbm_sm90::OpBF16>(X, out, n, p, stream);
 }

@@ -10,16 +10,26 @@
 // multiply-adds on n·p operand bytes, n ops per byte against a ridge of ~600
 // (int8) or ~300 (bf16): int8 at 1979 TOP/s, bf16 at 989 TFLOP/s, f32 on the
 // tensor cores as three TF32 products at 495 TFLOP/s each. A tile reads its
-// operands from L2 once per marker slab, so L2 bandwidth is the next limit:
-// a 128x256 int8 tile does 170 ops per byte it stages, and K1 at 8192x262144
-// with one CTA per tile staged 106 GB from L2 in 15 ms (7.1 TB/s). So K1 runs
-// in clusters of two CTAs that share each B slab (below): 71 GB.
+// operands from L2 once per marker slab, so the bytes staged from L2 into
+// shared memory per operation are the next limit:
+// - K1: a 128x256 int8 tile does 170 ops per byte it stages, and K1 at
+//   8192x262144 with one CTA per tile staged 106 GB from L2 in 15 ms
+//   (7.1 TB/s). So K1 runs in clusters of two CTAs that share each B slab
+//   (below): 71 GB.
+// - K2 on bf16: a 128x128 tile does 64 flop per byte it stages. One CTA per
+//   tile staged 2080 tiles x 4096 k-blocks x 32 KB = 279 GB at 8192x262144,
+//   in 71 ms on an H100 (3.9 TB/s, 25 % of the bound). In 2x2 clusters that
+//   multicast both operands (below) each CTA loads one 16 KB box a k-block
+//   for two CTAs: 528 x 4096 x 64 KB = 142 GB, 128 flop per staged byte, in
+//   32 ms (55 % of the bound). A 2x1 cluster sharing B alone (213 GB) on all
+//   132 SMs took 55 ms: the bytes staged, not the 12 SMs that 30 four-CTA
+//   clusters leave idle, set the time.
 //
 // Design (sm_90a only: wgmma and setmaxnreg):
 // - Operands by TMA. One CUtensorMap over the panel, 2-D boxes of
 //   (128 rows x 128 bytes) with 128-byte swizzle into a ring of STAGES
 //   shared-memory stages, each guarded by a `full` (TMA bytes landed) and an
-//   `empty` (the consumer warpgroups of every CTA in the cluster done)
+//   `empty` (the consumer warpgroups of every CTA this one loads into done)
 //   mbarrier. The panel is
 //   entry-major, so both operands are K-major as they stand: no transpose.
 //   Ragged n and p are zero-filled by TMA's out-of-bounds fill; the wrapper
@@ -28,14 +38,32 @@
 //   loads; setmaxnreg.dec to 40 registers), warpgroups 1 and 2 each own 64
 //   rows of the CTA's 128-row output tile (setmaxnreg.inc to 232) and issue
 //   wgmma.mma_async straight from the swizzled stages.
-// - K1 in clusters of CLUSTER = 2 CTAs: one cluster owns a 256x256 tile, each
-//   CTA 128 rows of it, and each CTA loads its own A rows and one 128-row box
-//   of the shared B slab, multicast into both CTAs. A stage is free once the
-//   consumers of both CTAs released it (remote mbarrier arrives). With
-//   BN = 2·BM the two row blocks of a cluster need the same column blocks, so
-//   no cluster tile is half empty. The arrives are CTA-scope releases, as
-//   CUTLASS's: a cluster-scope release waited for the wgmmas still in flight
-//   and made K1 twice as slow on an H100.
+// - K1 in 2x1 clusters (CLUSTER_M x CLUSTER_N CTAs): one cluster owns a
+//   256x256 tile, each CTA 128 rows of it, and each CTA loads its own A rows
+//   and one 128-row box of the shared B slab, multicast into both CTAs. A
+//   stage is free once the consumers of both CTAs released it (remote
+//   mbarrier arrives). With BN = 2·BM the two row blocks of a cluster need
+//   the same column blocks, so no cluster tile is half empty. The arrives are
+//   CTA-scope releases, as CUTLASS's: a cluster-scope release waited for the
+//   wgmmas still in flight and made K1 twice as slow on an H100.
+// - K2 on bf16 at large n in 2x2 clusters (OpBF16Quad): one cluster owns a
+//   256x256 tile and CTA (r, c) = rank (2r + c) its 128x128 quarter at rows
+//   128r, columns 128c. Each k-block, CTA (r, r) multicasts the A box of row
+//   block r to (r, 0) and (r, 1), and CTA (1 - c, c) the B box of column
+//   block c to (0, c) and (1, c): one 16 KB box per CTA, 32 KB landing in
+//   each. A CTA's consumers release a stage to the two CTAs that loaded it;
+//   a loader refills its slot once both of its readers released it. On a
+//   diagonal cluster tile CTA (0, 1) lies above the diagonal: it still loads
+//   and computes, and writes nothing. The CTA tile, mainloop and fold are
+//   OpBF16's, so the two schedules give the same bits where they split the
+//   markers alike. The CTA tile stays 128x128 because of the fold's
+//   registers (below): K1's 128x256 CTA tile would need 256 a thread.
+// - K2's schedule on bf16 (`bf16_quad`): one CTA per 128x128 tile where those
+//   tiles fit one wave of the card's SMs (n <= 1920 on 132 SMs), 2x2
+//   clusters beyond. 30 four-CTA clusters fit an H100 at once, so where one
+//   CTA per tile takes a single wave the clusters' coarser waves lose
+//   (1844x16384: 0.20 against 0.18 ms); past it they win (2048x32768: 0.34
+//   against 0.43 ms; 8192x262144: 32 against 71 ms).
 // - Persistent CTAs, one per SM, in an L2-aware order: the lower-triangular
 //   (cluster) tiles are enumerated in groups of GROUP row blocks, column
 //   block outer, row block inner, and work unit u goes to cluster
@@ -53,8 +81,8 @@
 // - K1 (Op S8): m64n256k32 s8·s8 -> s32, exact (the wrapper keeps
 //   p·ploidy² < 2³¹). Tile 128x256 per CTA, 256x256 per cluster, 4 stages
 //   of 48 KB.
-// - K2 bf16 (Op BF16): m64n128k16 bf16·bf16 -> f32. Tile 128x128, 6 stages
-//   of 32 KB.
+// - K2 bf16 (Op BF16, OpBF16Quad): m64n128k16 bf16·bf16 -> f32. Tile
+//   128x128 per CTA, 6 stages of 32 KB (7 ran no faster in 2x2 clusters).
 // - K2 f32 (Op TF32): 3xTF32. After a stage lands, the consumers split it in
 //   shared memory into hi = round-to-TF32(x) (in place) and lo = x - hi (the
 //   stage's second half; the split is elementwise, so lo keeps the swizzled
@@ -75,7 +103,8 @@
 //   bf16 (2.4e-6·max|G| there, against 1.1e-6 and a 10 % longer run when
 //   folding every 256). acc + part need 128 registers a thread at n128 and
 //   256 at n256, more than a consumer thread can hold, which is why the float
-//   tiles are 128x128 and the int8 tile, which needs no fold, is 128x256.
+//   CTA tiles are 128x128 and the int8 tile, which needs no fold, is 128x256;
+//   bf16 shares operands across CTAs instead (2x2 clusters, above).
 
 #pragma once
 
@@ -161,6 +190,11 @@ inline int marker_splits(int tiles, int ctas, int nk, int max_splits) {
       best = s;
   return best;
 }
+
+// K2's schedule on a bf16 panel (mirrored by kernels/gram_tri.py:bf16_quad):
+// one CTA per 128x128 tile (OpBF16) where those tiles fit one wave of the
+// card's `sms` SMs, 2x2 clusters of such CTAs (OpBF16Quad) beyond.
+inline bool bf16_quad(long long n, int sms) { return count_tiles(n, BM, BM) > sms; }
 
 // ---- PTX helpers ---------------------------------------------------------------
 
@@ -382,7 +416,7 @@ struct OpS8 {  // K1
   using Acc = int32_t;
   static constexpr int BN = 256, STAGES = 4, FOLD = 0;  // FOLD: stages per partial sum, 0 = none
   static constexpr int MAX_SPLITS = 8;  // int32 atomics are exact in any order
-  static constexpr int CLUSTER = 2;     // CTAs sharing each B slab by TMA multicast
+  static constexpr int CLUSTER_M = 2, CLUSTER_N = 1;  // 2x1 CTAs sharing each B slab by TMA multicast
   static constexpr bool HI_LO = false;
   static constexpr CUtensorMapDataType DTYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   __device__ __forceinline__ static void mma(Acc (&d)[BN / 2], uint32_t a, uint32_t b, uint32_t,
@@ -391,12 +425,12 @@ struct OpS8 {  // K1
   }
 };
 
-struct OpBF16 {  // K2, bf16 panels
+struct OpBF16 {  // K2, bf16 panels, one CTA per tile (small n)
   using T = __nv_bfloat16;
   using Acc = float;
   static constexpr int BN = 128, STAGES = 6, FOLD = 1024 / (ROW_BYTES / 2);  // 1024 markers
   static constexpr int MAX_SPLITS = 2;  // 0 + a + b == 0 + b + a: two float partials stay deterministic
-  static constexpr int CLUSTER = 1;
+  static constexpr int CLUSTER_M = 1, CLUSTER_N = 1;
   static constexpr bool HI_LO = false;
   static constexpr CUtensorMapDataType DTYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   __device__ __forceinline__ static void mma(Acc (&d)[BN / 2], uint32_t a, uint32_t b, uint32_t,
@@ -405,12 +439,18 @@ struct OpBF16 {  // K2, bf16 panels
   }
 };
 
+// K2, bf16 panels at large n: the same CTA tile, mainloop and fold in 2x2
+// clusters that multicast both operands (`bf16_quad` chooses).
+struct OpBF16Quad : OpBF16 {
+  static constexpr int CLUSTER_M = 2, CLUSTER_N = 2;
+};
+
 struct OpTF32 {  // K2, f32 panels, 3xTF32
   using T = float;
   using Acc = float;
   static constexpr int BN = 128, STAGES = 3, FOLD = 256 / (ROW_BYTES / 4);  // 256 markers
   static constexpr int MAX_SPLITS = 2;
-  static constexpr int CLUSTER = 1;
+  static constexpr int CLUSTER_M = 1, CLUSTER_N = 1;
   static constexpr bool HI_LO = true;
   static constexpr CUtensorMapDataType DTYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   // Small terms first: lo·hi + hi·lo, then hi·hi.
@@ -435,7 +475,9 @@ struct Layout {
   static constexpr int NREG = Op::BN / 2;  // accumulator registers per thread (m64 x BN / 128)
   static_assert(SMEM_BYTES <= 232448, "more shared memory than a block can have");
   static_assert(Op::BN % BM == 0, "B is loaded in BM-row boxes");
-  static_assert((Op::BN / BM) % Op::CLUSTER == 0, "each CTA of a cluster multicasts whole boxes of B");
+  static_assert(Op::CLUSTER_N == 1 ? (Op::BN / BM) % Op::CLUSTER_M == 0
+                                   : Op::CLUSTER_M == 2 && Op::CLUSTER_N == 2 && Op::BN == BM,
+                "clusters are 1x1, Nx1 sharing whole boxes of B, or 2x2 of one box per CTA");
 };
 
 // 3xTF32 split of this warpgroup's share of a landed stage: its 64 A rows and
@@ -467,9 +509,16 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
                      long long n, long long p, int splits) {
   using L = Layout<Op>;
   using Acc = typename Op::Acc;
-  constexpr int STAGES = Op::STAGES, NREG = L::NREG, CLUSTER = Op::CLUSTER;
-  constexpr int BMC = BM * CLUSTER;  // rows of a cluster's tile; CTA `rank` owns BM of them
+  constexpr int STAGES = Op::STAGES, NREG = L::NREG;
+  constexpr int CM = Op::CLUSTER_M, CN = Op::CLUSTER_N, CLUSTER = CM * CN;
+  // A cluster's tile is BMC x BNC; CTA `rank` = (crow, ccol) owns BM x BN of it.
+  constexpr int BMC = BM * CM, BNC = Op::BN * CN;
+  // CTAs whose consumers read what this CTA's producer loads, each releasing
+  // the stage to it: Nx1, the column (its own A rows, its B box multicast);
+  // 2x2, the two CTAs its one box is multicast to.
+  constexpr int READERS = CN == 1 ? CM : 2;
   const uint32_t rank = CLUSTER > 1 ? cluster_rank() : 0;
+  const uint32_t crow = rank / CN, ccol = rank % CN;
 
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle wants 1024-byte aligned boxes.
@@ -480,19 +529,19 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);             // the producer's arrive.expect_tx
-      mbar_init(&empty[s], 8 * CLUSTER);  // lane 0 of the 8 consumer warps of each CTA
+      mbar_init(&empty[s], 8 * READERS);  // lane 0 of the 8 consumer warps of each reader
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map)) : "memory");
   }
   if constexpr (CLUSTER > 1)
-    cluster_sync();  // the partner's barriers are initialised before any multicast
+    cluster_sync();  // the partners' barriers are initialised before any multicast
   else
     __syncthreads();
 
   const int nk = cdiv(p, L::K_ELEMS);
   const int wg = threadIdx.x / 128;
-  TileCursor cur(n, BMC, Op::BN);
+  TileCursor cur(n, BMC, BNC);
   int ti, tj, stage = 0;
   uint32_t phase = 0;
   // Work unit u = (cluster tile, marker split s) goes to cluster u % clusters;
@@ -509,22 +558,30 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
         if (!mine()) continue;
         const int k0 = s * nk / splits, k1 = (s + 1) * nk / splits;
         for (int kb = k0; kb < k1; ++kb) {
-          // In a cluster, the stage is free once both CTAs' consumers released it:
-          // this CTA's multicast writes into the partner's copy as well.
+          // In a cluster, the stage is free once the consumers of every CTA this
+          // one loads into released it: its multicast writes their copies too.
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], L::TX_BYTES);  // all of A and B land in every CTA
           uint8_t* st = smem + stage * L::STAGE_BYTES;
-          tma_load(st, &map, kb * L::K_ELEMS, ti * BMC + rank * BM, &full[stage]);
+          if constexpr (CN == 1) {
+            tma_load(st, &map, kb * L::K_ELEMS, ti * BMC + rank * BM, &full[stage]);
 #pragma unroll
-          for (int c = 0; c < Op::BN / BM; ++c) {
-            uint8_t* dst = st + A_BYTES + c * A_BYTES;
-            if constexpr (CLUSTER > 1) {
-              if (c % CLUSTER == static_cast<int>(rank))
-                tma_load_multicast(dst, &map, kb * L::K_ELEMS, tj * Op::BN + c * BM, &full[stage],
-                                   static_cast<uint16_t>((1 << CLUSTER) - 1));
-            } else {
-              tma_load(dst, &map, kb * L::K_ELEMS, tj * Op::BN + c * BM, &full[stage]);
+            for (int c = 0; c < Op::BN / BM; ++c) {
+              uint8_t* dst = st + A_BYTES + c * A_BYTES;
+              if constexpr (CLUSTER > 1) {
+                if (c % CLUSTER == static_cast<int>(rank))
+                  tma_load_multicast(dst, &map, kb * L::K_ELEMS, tj * Op::BN + c * BM, &full[stage],
+                                     static_cast<uint16_t>((1 << CLUSTER) - 1));
+              } else {
+                tma_load(dst, &map, kb * L::K_ELEMS, tj * Op::BN + c * BM, &full[stage]);
+              }
             }
+          } else if (crow == ccol) {  // 2x2: A of cluster row crow, to ranks 2·crow and 2·crow + 1
+            tma_load_multicast(st, &map, kb * L::K_ELEMS, ti * BMC + crow * BM, &full[stage],
+                               static_cast<uint16_t>(3u << (2 * crow)));
+          } else {  // 2x2: B of cluster column ccol, to ranks ccol and 2 + ccol
+            tma_load_multicast(st + A_BYTES, &map, kb * L::K_ELEMS, tj * BNC + ccol * BM, &full[stage],
+                               static_cast<uint16_t>(5u << ccol));
           }
           if (++stage == STAGES) {
             stage = 0;
@@ -541,7 +598,10 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
     Acc part[Op::FOLD ? NREG : 1];
     auto release = [&](int s) {
       if (lane == 0) {
-        if constexpr (CLUSTER > 1) {
+        if constexpr (CN > 1) {  // 2x2: the loaders of this stage's A, (crow, crow), and B, (1 - ccol, ccol)
+          mbar_arrive_cluster(&empty[s], 3 * crow);
+          mbar_arrive_cluster(&empty[s], 2 - ccol);
+        } else if constexpr (CLUSTER > 1) {
 #pragma unroll
           for (int q = 0; q < CLUSTER; ++q) mbar_arrive_cluster(&empty[s], q);
         } else {
@@ -618,8 +678,8 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
       // Epilogue: the m64nBN accumulator layout; lower triangle only. Split
       // tiles add their partial sums into the zero-filled output.
       const long long r0 =
-          static_cast<long long>(ti) * BMC + rank * BM + 64 * w + 16 * warp + (lane >> 2);
-      const long long c0 = static_cast<long long>(tj) * Op::BN + 2 * (lane & 3);
+          static_cast<long long>(ti) * BMC + crow * BM + 64 * w + 16 * warp + (lane >> 2);
+      const long long c0 = static_cast<long long>(tj) * BNC + ccol * Op::BN + 2 * (lane & 3);
       auto epilogue = [&](auto put) {
 #pragma unroll
         for (int r = 0; r < NREG; ++r) {
@@ -634,7 +694,7 @@ gram_tri_sm90_kernel(const __grid_constant__ CUtensorMap map, typename Op::Acc* 
         epilogue([](Acc* o, Acc v) { atomicAdd(o, v); });
     }
   }
-  // No CTA of a cluster exits while its partner may still arrive on its
+  // No CTA of a cluster exits while a partner may still arrive on its
   // barriers or multicast into its shared memory.
   if constexpr (CLUSTER > 1) cluster_sync();
 }
@@ -683,9 +743,10 @@ int launch(const void* X, void* out, long long n, long long p, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(gram_tri_sm90_kernel<Op>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int CLUSTER = Op::CLUSTER_M * Op::CLUSTER_N;
   cudaLaunchAttribute cluster_dim;
   cluster_dim.id = cudaLaunchAttributeClusterDimension;
-  cluster_dim.val.clusterDim.x = Op::CLUSTER;
+  cluster_dim.val.clusterDim.x = CLUSTER;
   cluster_dim.val.clusterDim.y = 1;
   cluster_dim.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -693,11 +754,11 @@ int launch(const void* X, void* out, long long n, long long p, void* stream) {
   cfg.dynamicSmemBytes = L::SMEM_BYTES;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &cluster_dim;
-  cfg.numAttrs = Op::CLUSTER > 1 ? 1 : 0;
+  cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
   // Persistent: as many clusters as fit on the card at once (one CTA per SM).
   int clusters = 0;
-  if constexpr (Op::CLUSTER > 1) {
-    cfg.gridDim = dim3(Op::CLUSTER);
+  if constexpr (CLUSTER > 1) {
+    cfg.gridDim = dim3(CLUSTER);
     err = cudaOccupancyMaxActiveClusters(&clusters, gram_tri_sm90_kernel<Op>, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
@@ -706,14 +767,22 @@ int launch(const void* X, void* out, long long n, long long p, void* stream) {
     cudaDeviceGetAttribute(&clusters, cudaDevAttrMultiProcessorCount, dev);
   }
   if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const int tiles = count_tiles(n, BM * Op::CLUSTER, Op::BN);
+  const int tiles = count_tiles(n, BM * Op::CLUSTER_M, Op::BN * Op::CLUSTER_N);
   const int splits = marker_splits(tiles, clusters, cdiv(p, L::K_ELEMS), Op::MAX_SPLITS);
   const int units = tiles * splits;
-  cfg.gridDim = dim3(Op::CLUSTER * (units < clusters ? units : clusters));
+  cfg.gridDim = dim3(CLUSTER * (units < clusters ? units : clusters));
   err = cudaLaunchKernelEx(&cfg, gram_tri_sm90_kernel<Op>, map, static_cast<typename Op::Acc*>(out),
                            n, p, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2 on a bf16 panel, in the schedule `bf16_quad` picks for its n on this card.
+inline int launch_bf16(const void* X, void* out, long long n, long long p, void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return bf16_quad(n, sms) ? launch<OpBF16Quad>(X, out, n, p, stream) : launch<OpBF16>(X, out, n, p, stream);
 }
 
 }  // namespace gbm_sm90

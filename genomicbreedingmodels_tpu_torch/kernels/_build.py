@@ -55,6 +55,7 @@ _ENTRY_POINTS = {
     "gbm_gram_tri_int8": _GRAM,
     "gbm_gram_tri_f32": _GRAM,
     "gbm_gram_tri_bf16": _GRAM,
+    "gbm_gram_tri_bf16_schedule": (_PTR, _PTR, _SIZE, _SIZE, ctypes.c_int, _PTR),  # + quad (0 or 1)
     # (Cb, u, b, s2, val, eta, gum, sig_e2, pi, delta, b_new, incl, bs, K,
     #  tables, flags, epoch, slice_floats, staged_quads, folds,
     #  the six fold strides, stream)

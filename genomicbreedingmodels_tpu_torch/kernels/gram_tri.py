@@ -16,7 +16,18 @@ Contract of both wrappers: the result is (n, n) with the lower triangle
   (`csrc/gram_tri_sm90.cuh`): TMA
   loads into a shared-memory ring, wgmma on the tensor cores, persistent
   CTAs walking the lower-triangular tiles in the order `tile_order` gives,
-  each tile's markers split as `marker_splits` says (`tile_schedule`).
+  each tile's markers split as `marker_splits` says (`tile_schedule`), in
+  clusters of CTAs that share operand boxes by TMA multicast (`tiling`).
+- What bounds K2 on bf16 past the operations is the bytes each tile stages
+  from L2 into shared memory: 64 flop a byte for one CTA per 128x128 tile,
+  279 GB at 8192x262144. In 2x2 clusters each CTA multicasts one 16 KB box
+  a k-block to the two CTAs that read it (142 GB there, 128 flop a byte).
+  The CTA tile stays 128x128 because the 1024-marker fold keeps a second
+  accumulator in registers: at 128x256 the two would need 256 registers a
+  thread, more than a consumer can hold. The clusters' waves are coarser,
+  so where one CTA per tile takes a single wave of the SMs that schedule
+  stays (`bf16_quad`). With tracing on (`utils/logging.py`) each K2 launch
+  counts `gbm.grm.k2.clustered` or `gbm.grm.k2.single`.
 - A CPU tensor goes to the plain PyTorch version beside it
   (`gram_tri_int8_plain`, `gram_tri_float_plain`). That is the only reason a
   plain version runs: the device of the tensor decides, nothing else.
@@ -24,19 +35,21 @@ Contract of both wrappers: the result is (n, n) with the lower triangle
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from ..utils.logging import count, tracing_on
 from . import _build
 from ._build import LAUNCHES, reset_launches
 
 __all__ = [
     "BM",
-    "CLUSTER",
     "GROUP",
     "LAUNCHES",
-    "MAX_SPLITS",
-    "TILE_M",
-    "TILE_N",
+    "Tiling",
+    "bf16_quad",
+    "cta_part",
     "gram_tri_float",
     "gram_tri_float_plain",
     "gram_tri_int8",
@@ -45,6 +58,7 @@ __all__ = [
     "reset_launches",
     "tile_order",
     "tile_schedule",
+    "tiling",
     "tma_operand",
 ]
 
@@ -52,21 +66,58 @@ _INT32_LIMIT = 2**31  # exact int32 accumulation needs p·ploidy² below this
 _F32_EXACT = 2**24  # integers up to 2²⁴ are exact in float32
 _PLAIN_CHUNK = 65_536  # marker columns per float32 product in the int8 plain version
 
-# The kernels' tiling (csrc/gram_tri_sm90.cuh) by operand type: CLUSTER CTAs
-# of BM output rows each (two consumer warpgroups x 64) share a tile of
-# TILE_M = CLUSTER·BM rows by TILE_N columns, GROUP row blocks of TILE_M make
-# an L2 group of the tile order, markers come in k-blocks of _ROW_BYTES bytes
-# per row, and a tile takes at most MAX_SPLITS marker splits of at least
-# _MIN_SPLIT_BLOCKS k-blocks.
+# The kernels' tiling (csrc/gram_tri_sm90.cuh): a CTA computes BM output rows
+# (two consumer warpgroups x 64) by `_CTA_N` columns, a cluster of
+# cluster_m x cluster_n CTAs (`tiling`) shares a tile of TILE_M x TILE_N,
+# GROUP row blocks of TILE_M make an L2 group of the tile order, markers come
+# in k-blocks of _ROW_BYTES bytes per row, and a tile takes at most
+# `_MAX_SPLITS` marker splits of at least _MIN_SPLIT_BLOCKS k-blocks.
 BM = 128
 GROUP = 16
-CLUSTER = {torch.int8: 2, torch.bfloat16: 1, torch.float32: 1}
-TILE_M = {dt: BM * c for dt, c in CLUSTER.items()}
-TILE_N = {torch.int8: 256, torch.bfloat16: 128, torch.float32: 128}
-MAX_SPLITS = {torch.int8: 8, torch.bfloat16: 2, torch.float32: 2}
+_CTA_N = {torch.int8: 256, torch.bfloat16: 128, torch.float32: 128}
+_MAX_SPLITS = {torch.int8: 8, torch.bfloat16: 2, torch.float32: 2}
 _ROW_BYTES = 128
 _MIN_SPLIT_BLOCKS = 64
 _TMA_ALIGN = 16  # bytes: TMA wants the base and the row stride on this multiple
+
+
+class Tiling(NamedTuple):
+    """How the kernel tiles the Gram of one panel: clusters of cluster_m x
+    cluster_n CTAs, each cluster owning a tile_m x tile_n tile of the output
+    and each CTA a BM x tile_n / cluster_n part of it, with at most
+    max_splits marker splits a tile."""
+
+    cluster_m: int
+    cluster_n: int
+    tile_m: int
+    tile_n: int
+    max_splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster_m * self.cluster_n
+
+
+def bf16_quad(n: int, sms: int) -> bool:
+    """Whether K2 runs a bf16 panel of n entries in 2x2 clusters on a card
+    with `sms` SMs, as `bf16_quad` in the kernel's header: where one CTA per
+    128x128 lower-triangular tile would take more than one wave of the SMs;
+    one CTA per tile where they fit one wave."""
+    nr = -(-n // BM)
+    return nr * (nr + 1) // 2 > sms
+
+
+def tiling(dtype: torch.dtype, n: int, sms: int) -> Tiling:
+    """The kernel's tiling of an (n, p) panel of `dtype` on a card with `sms`
+    SMs: K1 in 2x1 clusters sharing B, K2 on f32 one CTA per tile, K2 on bf16
+    in 2x2 clusters sharing A and B where `bf16_quad`, else one CTA per tile."""
+    if dtype == torch.int8:
+        cm, cn = 2, 1
+    elif dtype == torch.bfloat16 and bf16_quad(n, sms):
+        cm, cn = 2, 2
+    else:
+        cm, cn = 1, 1
+    return Tiling(cm, cn, BM * cm, _CTA_N[dtype] * cn, _MAX_SPLITS[dtype])
 
 
 def tile_order(n: int, bm: int, bn: int) -> list[tuple[int, int]]:
@@ -110,17 +161,27 @@ def tile_schedule(n: int, p: int, dtype: torch.dtype, sms: int) -> list[list[tup
     (n, p) panel of `dtype` on a card with `sms` SMs, all of them in clusters.
 
     A unit is (row block, column block, first k-block, end k-block) with
-    blocks of TILE_M x TILE_N: the tiles of `tile_order`, each cut into
-    `marker_splits` consecutive ranges of the nk k-blocks; unit u goes to
-    cluster u % grid, grid = min(sms // CLUSTER, units).
+    blocks of `tiling(dtype, n, sms)`'s tile_m x tile_n: the tiles of `tile_order`,
+    each cut into `marker_splits` consecutive ranges of the nk k-blocks; unit u
+    goes to cluster u % grid, grid = min(sms // ctas, units). Each CTA of the
+    cluster computes its own part of the unit's tile (`cta_part`).
     """
-    order = tile_order(n, TILE_M[dtype], TILE_N[dtype])
+    t = tiling(dtype, n, sms)
+    order = tile_order(n, t.tile_m, t.tile_n)
     nk = -(-p * torch.empty(0, dtype=dtype).element_size() // _ROW_BYTES)
-    clusters = sms // CLUSTER[dtype]
-    S = marker_splits(len(order), clusters, nk, MAX_SPLITS[dtype])
+    clusters = sms // t.ctas
+    S = marker_splits(len(order), clusters, nk, t.max_splits)
     units = [(i, j, s * nk // S, (s + 1) * nk // S) for i, j in order for s in range(S)]
     grid = min(clusters, len(units))
     return [units[c::grid] for c in range(grid)]
+
+
+def cta_part(t: Tiling, i: int, j: int, rank: int) -> tuple[int, int, int, int]:
+    """(first row, first column, rows, columns) of tile (i, j) that cluster
+    CTA `rank` computes: CTA (rank // cluster_n, rank % cluster_n) of the
+    cluster's grid, as the kernel's epilogue writes it."""
+    rows, cols = t.tile_m // t.cluster_m, t.tile_n // t.cluster_n
+    return i * t.tile_m + rank // t.cluster_n * rows, j * t.tile_n + rank % t.cluster_n * cols, rows, cols
 
 
 def tma_operand(X: torch.Tensor) -> torch.Tensor:
@@ -221,7 +282,8 @@ def gram_tri_float(X: torch.Tensor) -> torch.Tensor:
     """K2: lower-triangular raw Gram of an f32 or bf16 panel, f32 accumulation.
 
     On the card, f32 runs as 3xTF32 on the tensor cores and bf16 as bf16
-    wgmma, both within 1e-5·max|G| of the float64 plain version. A panel
+    wgmma (in 2x2 clusters where `bf16_quad`), both within 1e-5·max|G| of
+    the float64 plain version. A panel
     whose row is not a multiple of 16 bytes (p % 4 for f32, p % 8 for bf16)
     is padded with zero columns, and one whose base is not 16-byte aligned is
     copied, before the kernel reads it (`tma_operand`).
@@ -235,4 +297,7 @@ def gram_tri_float(X: torch.Tensor) -> torch.Tensor:
         entry = "gbm_gram_tri_f32" if X.dtype == torch.float32 else "gbm_gram_tri_bf16"
         _launch(entry, X, out)
         _build.count_launch("gram_tri_float", (str(X.dtype)[6:], n, p))
+        if tracing_on():
+            sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+            count("gbm.grm.k2.clustered" if tiling(X.dtype, n, sms).ctas > 1 else "gbm.grm.k2.single")
     return out

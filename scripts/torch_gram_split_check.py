@@ -43,9 +43,10 @@ def parse(spec: str):
 
 def splits_of(n: int, p: int, dtype: torch.dtype) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tiles = len(gram_tri.tile_order(n, gram_tri.TILE_M[dtype], gram_tri.TILE_N[dtype]))
+    t = gram_tri.tiling(dtype, n, sms)
+    tiles = len(gram_tri.tile_order(n, t.tile_m, t.tile_n))
     nk = -(-p * torch.empty(0, dtype=dtype).element_size() // 128)
-    return gram_tri.marker_splits(tiles, sms // gram_tri.CLUSTER[dtype], nk, gram_tri.MAX_SPLITS[dtype])
+    return gram_tri.marker_splits(tiles, sms // t.ctas, nk, t.max_splits)
 
 
 def explain_tile(D, diff, i, j, tm, tn, S):
@@ -85,7 +86,8 @@ def check(dtype, n, p, seed):
               f"plain==_int_mm {torch.equal(R, L)}; {n_wrong} wrong elements, max|err| "
               f"{int(diff.abs().max())}", flush=True)
         if n_wrong:
-            tm, tn = gram_tri.TILE_M[dtype], gram_tri.TILE_N[dtype]
+            t = gram_tri.tiling(dtype, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            tm, tn = t.tile_m, t.tile_n
             rr, cc = torch.nonzero(diff, as_tuple=True)
             tiles = sorted({(int(a), int(b)) for a, b in zip((rr // tm).tolist(), (cc // tn).tolist())})
             print(f"  {len(tiles)} wrong tiles of {tm}x{tn}: {tiles[:24]}{' ...' if len(tiles) > 24 else ''}")

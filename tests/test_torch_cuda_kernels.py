@@ -105,6 +105,51 @@ def test_gram_float_at_size_on_card(cuda_device, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(4096, 65536), (8192, 4096), (8193, 4099), (2048, 4099), (1844, 4099),
+                                 (300, 4099)])
+def test_gram_bf16_schedule_by_shape_on_card(cuda_device, n, p):
+    """K2 on bf16 in the schedule the shape rule picks (2x2 clusters from
+    n = 1921 on 132 SMs, one CTA per tile below), ragged n and p included:
+    within 1e-5·max|G| of float64, strict upper triangle zero, and the
+    traced counter names the schedule that ran."""
+    from genomicbreedingmodels_tpu_torch.utils import logging as tr
+
+    g = torch.Generator(device=cuda_device).manual_seed(n + p)
+    X = torch.rand((n, p), device=cuda_device, generator=g).to(torch.bfloat16)
+    tr.reset()
+    with tr.tracing():
+        K = gram_tri.gram_tri_float(X)
+    counters = tr.collect()["counters"]
+    tr.reset()
+    R = gram_tri.gram_tri_float_plain(X)
+    assert float((K - R).abs().max()) <= 1e-5 * float(R.abs().max())
+    assert not torch.triu(K, 1).any()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    quad = gram_tri.bf16_quad(n, sms)
+    assert counters == {"gbm.grm.k2.clustered" if quad else "gbm.grm.k2.single": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quad", [0, 1], ids=["single", "clustered"])
+def test_gram_bf16_both_schedules_at_size_on_card(cuda_device, quad):
+    """bf16 K2 at 2048 x 32768 in each schedule, whichever the rule picks:
+    both within 1e-5·max|G| of float64 with the strict upper triangle zero,
+    and the wrapper's Gram is the bits of the schedule the rule names."""
+    n, p = 2048, 32768
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    X = torch.rand((n, p), device=cuda_device, generator=g).to(torch.bfloat16)
+    K = torch.zeros((n, n), dtype=torch.float32, device=cuda_device)
+    _build.launch("gbm_gram_tri_bf16_schedule", X.data_ptr(), K.data_ptr(), n, p, quad,
+                  torch.cuda.current_stream(cuda_device).cuda_stream)
+    R = gram_tri.gram_tri_float_plain(X)
+    assert float((K - R).abs().max()) <= 1e-5 * float(R.abs().max())
+    assert not torch.triu(K, 1).any()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if gram_tri.bf16_quad(n, sms) == bool(quad):
+        assert torch.equal(gram_tri.gram_tri_float(X), K)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         gram_tri.gram_tri_int8(torch.zeros(8, 4, dtype=torch.int8, device=cuda_device).T)
@@ -708,5 +753,6 @@ def test_refit_spans_time_the_card(cuda_device, panel):
     for parent in ("gbm.grm", "gbm.solve"):
         kids = sum(s["device_s"] for n, s in spans.items() if s["parent"] == parent)
         assert kids <= spans[parent]["device_s"] * 1.001
-    assert got["counters"] == {"gbm.solve.not_pd": 0}
+    k2 = {} if panel == "int8" else {"gbm.grm.k2.single": 1}  # 64 tiles of 128 fit one wave
+    assert got["counters"] == {"gbm.solve.not_pd": 0, **k2}
     assert got["launches"]["gram_tri_int8" if panel == "int8" else "gram_tri_float"] == 1

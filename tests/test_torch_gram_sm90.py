@@ -2,9 +2,11 @@
 
 - `tile_order` mirrors the kernel's `TileCursor` (csrc/gram_tri_sm90.cuh)
   and `tile_schedule` its work units (tile, marker split) over the persistent
-  CTAs: with the kernel's write predicate (row < n and col <= row) every
-  lower-triangular element gets every marker block exactly once and no
-  strict-upper element gets any; `marker_splits` fills the last wave.
+  clusters: with each CTA writing its part of the tile (`cta_part`) under the
+  kernel's predicate (row < n and col <= row), every lower-triangular element
+  gets every marker block exactly once and no strict-upper element gets any;
+  `marker_splits` fills the last wave. `bf16_quad` mirrors the header's rule
+  for K2's bf16 schedule (2x2 clusters at large n, one CTA per tile below).
 - `tma_operand` pads ragged p with zero columns and copies a misaligned base,
   leaving the Gram unchanged.
 - A plain-torch model of K2's f32 path (3xTF32: hi rounded to TF32, lo = x - hi
@@ -26,25 +28,33 @@ torch.set_num_threads(2)
 K2_TOL = 1e-5  # max |err| / max |G|, the kernels' tolerance against float64
 
 
-def _marker_blocks(n: int, units, bm: int, bn: int, dtype) -> np.ndarray:
+def _marker_blocks(n: int, units, t, dtype) -> np.ndarray:
     """How many marker blocks the kernel's epilogues add into each element of
-    the (n, n) output, over all work units (row block, column block, k0, k1)."""
+    the (n, n) output, over all work units (row block, column block, k0, k1)
+    and every CTA of the unit's cluster, each writing its own part of the tile
+    (row < n and col <= row)."""
     count = np.zeros((n, n), dtype)
     rows = np.arange(n)[:, None]
     cols = np.arange(n)[None, :]
     for i, j, k0, k1 in units:
-        r0, c0 = i * bm, j * bn
-        tile = (slice(r0, r0 + bm), slice(c0, c0 + bn))
-        count[tile] += (k1 - k0) * (cols[:, tile[1]] <= rows[tile[0]]).astype(dtype)
+        for rank in range(t.ctas):
+            r0, c0, h, w = gram_tri.cta_part(t, i, j, rank)
+            part = (slice(r0, r0 + h), slice(c0, c0 + w))
+            count[part] += (k1 - k0) * (cols[:, part[1]] <= rows[part[0]]).astype(dtype)
     return count
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 255, 256, 1000, 1844, 8192])
-@pytest.mark.parametrize("dtype", [torch.int8, torch.float32], ids=["bn256", "bn128"])
+DTYPES = [torch.int8, torch.float32, torch.bfloat16]
+DTYPE_IDS = ["bn256", "bn128", "bf16"]
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 255, 256, 300, 1000, 1844, 2048, 8192, 8193])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_tile_schedule_covers_lower_triangle_once(n, dtype):
     # p = 16384 lets few tiles split (64 k-blocks each at least); at n = 8192
     # nothing splits, and a smaller p keeps the count array small.
-    bm, bn, p = gram_tri.TILE_M[dtype], gram_tri.TILE_N[dtype], 16384 if n <= 2048 else 4096
+    t = gram_tri.tiling(dtype, n, sms=132)
+    bm, bn, p = t.tile_m, t.tile_n, 16384 if n <= 2048 else 4096
     nk = p * torch.tensor([], dtype=dtype).element_size() // 128
     order = gram_tri.tile_order(n, bm, bn)
     assert len(set(order)) == len(order)
@@ -52,17 +62,42 @@ def test_tile_schedule_covers_lower_triangle_once(n, dtype):
         assert j * bn <= min(i * bm + bm, n) - 1
     sched = gram_tri.tile_schedule(n, p, dtype, sms=132)
     units = [u for cta in sched for u in cta]
-    assert len(sched) == min(132 // gram_tri.CLUSTER[dtype], len(units))
+    assert len(sched) == min(132 // t.ctas, len(units))
     assert len(set(units)) == len(units) and all(k0 < k1 for _, _, k0, k1 in units)
     assert {(i, j) for i, j, _, _ in units} == set(order)
-    # Every lower element gets each of the nk marker blocks once, the strict
-    # upper triangle none.
+    # Every lower element gets each of the nk marker blocks once, from one CTA,
+    # the strict upper triangle none.
     count_dtype = np.uint8 if nk < 256 else np.uint16
-    count = _marker_blocks(n, units, bm, bn, count_dtype)
+    count = _marker_blocks(n, units, t, count_dtype)
     assert np.array_equal(count, nk * np.tril(np.ones((n, n), count_dtype)))
     # Units in the tile order, each tile's splits together: cluster c starts with unit c.
     flat = [(i, j) for i, j, _, _ in sorted(units, key=lambda u: (order.index(u[:2]), u[2]))]
     assert [cta[0][:2] for cta in sched] == flat[: len(sched)]
+
+
+# The bf16 shapes of the port's callers on 132 SMs: the freq cell's 8192, a
+# ragged 8193, bench_torch.py's gwas/cv sections at 2048 (136 tiles of 128,
+# two waves), 1844 (120 tiles, one wave) and a small 300.
+BF16_SCHEDULES = {8192: True, 8193: True, 4096: True, 2048: True, 1921: True, 1920: False, 1844: False,
+                  300: False}
+
+
+@pytest.mark.parametrize("n", sorted(BF16_SCHEDULES))
+def test_bf16_schedule_by_shape(n):
+    """K2 on bf16 runs 2x2 clusters at the freq cell's n and above, one CTA per
+    tile at the small callers' shapes; a 2x2 cluster's strictly upper CTA on
+    a diagonal tile writes nothing, and its clusters fit sms // 4."""
+    t = gram_tri.tiling(torch.bfloat16, n, sms=132)
+    assert gram_tri.bf16_quad(n, 132) == BF16_SCHEDULES[n]
+    assert (t.cluster_m, t.cluster_n, t.tile_m, t.tile_n) == (
+        (2, 2, 256, 256) if BF16_SCHEDULES[n] else (1, 1, 128, 128))
+    sched = gram_tri.tile_schedule(n, 65536, torch.bfloat16, sms=132)
+    assert len(sched) <= 132 // t.ctas
+    for i, j, _, _ in (u for cta in sched for u in cta):
+        if i != j or t.ctas == 1:
+            continue
+        r0, c0, h, w = gram_tri.cta_part(t, i, j, 1)  # CTA (0, 1): rows above its columns
+        assert (r0, c0) == (i * 256, j * 256 + 128) and r0 + h - 1 < c0
 
 
 @pytest.mark.parametrize(
@@ -76,6 +111,9 @@ def test_tile_schedule_covers_lower_triangle_once(n, dtype):
         (3, 66, 512, 8, 8),  # K1 at 300x65536: eight splits of 64 k-blocks
         (3, 66, 200, 8, 3),  # at least 64 k-blocks per split
         (6, 132, 127, 2, 1),  # too few k-blocks to split
+        (528, 32, 4096, 2, 2),  # K2 bf16 in 2x2 clusters at 8192x262144, 32 clusters: 16.5 waves
+        (528, 33, 4096, 2, 1),  # the same on 33 clusters: 16 full waves
+        (136, 32, 1024, 2, 2),  # K2 bf16 in 2x2 clusters at 4096x65536
     ],
 )
 def test_marker_splits_fill_the_last_wave(tiles, ctas, nk, max_splits, splits):
@@ -89,14 +127,16 @@ def test_cluster_tiles_at_main_shapes():
     assert len(gram_tri.tile_order(300, 256, 256)) == 3
     assert len(gram_tri.tile_order(2048, 128, 128)) == 136
     assert len(gram_tri.tile_order(1844, 128, 128)) == 120
+    assert len(gram_tri.tile_order(8193, 256, 256)) == 561
 
 
 def test_tile_order_groups_row_blocks():
     # A wave of 66 consecutive cluster tiles (132 SMs) at the headline shape
     # spans at most two groups of GROUP row blocks, so it shares their marker
     # slabs in L2.
-    order = gram_tri.tile_order(8192, gram_tri.TILE_M[torch.int8], gram_tri.TILE_N[torch.int8])
-    wave = 132 // gram_tri.CLUSTER[torch.int8]
+    t = gram_tri.tiling(torch.int8, 8192, sms=132)
+    order = gram_tri.tile_order(8192, t.tile_m, t.tile_n)
+    wave = 132 // t.ctas
     for w in range(0, len(order), wave):
         assert len({i // gram_tri.GROUP for i, _ in order[w : w + wave]}) <= 2
 
@@ -202,6 +242,7 @@ def tile_cursor_exe(tmp_path_factory):
         "#include <cstdio>\n#include <cstdlib>\n#define __host__\n#define __device__\n"
         "namespace gbm_sm90 {\n" + m.group(1) + "}\n"
         "int main(int argc, char** argv) {\n"
+        "  if (argc == 3) return std::printf(\"%d\\n\", gbm_sm90::bf16_quad(atoll(argv[1]), atoi(argv[2]))) < 0;\n"
         "  gbm_sm90::TileCursor cur(atoll(argv[1]), atoi(argv[2]), atoi(argv[3]));\n"
         "  int i, j;\n  while (cur.next(i, j)) std::printf(\"%d %d\\n\", i, j);\n  return 0;\n}\n")
     subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(d / "tiles"), str(d / "main.cpp")], check=True)
@@ -209,15 +250,27 @@ def tile_cursor_exe(tmp_path_factory):
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 4097, 8192, 10000])
-@pytest.mark.parametrize("dtype", [torch.int8, torch.float32], ids=["bn256", "bn128"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_kernel_tile_cursor_visits_tile_order_once(tile_cursor_exe, n, dtype):
     # Past GROUP row blocks the header's cursor must start each group at its
     # own first row block: a cursor that revisits column 0 of earlier row
     # blocks adds split tiles twice (atomics) and wastes a wave unsplit.
     import subprocess
 
-    bm, bn = gram_tri.TILE_M[dtype], gram_tri.TILE_N[dtype]
+    t = gram_tri.tiling(dtype, n, sms=132)
+    bm, bn = t.tile_m, t.tile_n
     out = subprocess.run([str(tile_cursor_exe), str(n), str(bm), str(bn)], capture_output=True,
                          text=True, check=True).stdout.split()
     tiles = [(int(a), int(b)) for a, b in zip(out[::2], out[1::2])]
     assert tiles == gram_tri.tile_order(n, bm, bn)
+
+
+@pytest.mark.parametrize("n", [1, 300, 1844, 1920, 1921, 2048, 2560, 4096, 8192, 8193, 50000])
+@pytest.mark.parametrize("sms", [114, 132])
+def test_kernel_bf16_schedule_rule_is_the_header_rule(tile_cursor_exe, n, sms):
+    """`bf16_quad` mirrors the header's rule, which picks the kernel launched."""
+    import subprocess
+
+    out = subprocess.run([str(tile_cursor_exe), str(n), str(sms)], capture_output=True, text=True,
+                         check=True).stdout
+    assert bool(int(out)) == gram_tri.bf16_quad(n, sms)
