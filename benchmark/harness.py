@@ -1,6 +1,6 @@
 """What every cell of the benchmark shares: seeds, cache directories, the
 card's clocks before and after the window, the harness's spans, the reduction of a profiler trace, the
-metric readers and the result line.
+metric readers, the plain references found by the models they hold, and the result line.
 
 Nothing here imports the program; `torch` is imported inside the functions
 that need it, so the tests can load this module cheaply.
@@ -28,6 +28,10 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "genomicbreedingmodels_tpu")
 # The harness's own spans. A device idle gap is named by the innermost one
 # that the host was in at the gap's middle, "harness" where it was in none.
 SPANS = ("inputs", "issue", "grm", "solve", "readback", "cv_call")
+
+# The program names each of its spans (utils/logging.py) with this prefix.
+# Its host ranges are spans for `split_gaps`; its events are never device work.
+PROGRAM_SPAN = "gbm."
 
 SMI_FIELDS = "index,name,clocks.sm,clocks.mem,power.draw,power.limit,temperature.gpu"
 
@@ -80,6 +84,25 @@ def load_file_module(path: Path, name: str):
 
 def route_module(traffic: dict):
     return load_file_module(BENCH / "routes" / f"{traffic['route']}.py", f"bench_route_{traffic['route']}")
+
+
+def references(models) -> dict:
+    """{model: module} of the plain references under `reference/` that hold
+    the models: each such module names them in `MODELS`. A model no module
+    names is left out; two modules naming one model is an error."""
+    import importlib
+    import pkgutil
+
+    import reference
+
+    found: dict = {}
+    for info in sorted(pkgutil.iter_modules(reference.__path__), key=lambda i: i.name):
+        mod = importlib.import_module(f"reference.{info.name}")
+        for m in getattr(mod, "MODELS", ()):
+            if m in found:
+                raise ValueError(f"model {m!r} is held by both {found[m].__name__} and {mod.__name__}")
+            found[m] = mod
+    return {m: found[m] for m in models if m in found}
 
 
 def metric_reader(name: str):
@@ -145,7 +168,9 @@ class Ctx:
         self.tracing = False  # inside the profiled window: spans are recorded
         self.failed = 0
         self.trace = None  # reduced device trace of a traced run
-        self.stage_ms: dict[str, list[float]] = {}  # CUDA-event stage times
+        self.program = None  # the program's spans and counters of the traced window (utils/logging.collect)
+        self.traced_requests = 0  # the requests inside the traced window
+        self.stage_ms: dict[str, list[float]] = {}  # stage times a caller records (scripts/torch_stage_spans.py)
         self.sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
 
     @contextmanager
@@ -175,18 +200,35 @@ def _union(intervals: list[tuple[int, int]]) -> list[tuple[int, int]]:
     return [(s, e) for s, e in out]
 
 
+def _window(events, window: str) -> tuple[int, int] | None:
+    wins = [(s, e) for name, dev, s, e in events if not dev and name == window]
+    return (min(s for s, _ in wins), max(e for _, e in wins)) if wins else None
+
+
+def _device_ops(events, w0: int, w1: int, window: str) -> list[tuple[str, int, int]]:
+    """The device operations of the window, clipped to it: never a span of
+    the harness or of the program."""
+    return [(n, max(s, w0), min(e, w1)) for n, dev, s, e in events
+            if dev and n not in SPANS and n != window and not n.startswith(PROGRAM_SPAN) and e > w0 and s < w1]
+
+
+def _idle(busy: list[tuple[int, int]], w0: int, w1: int):
+    """The idle intervals of the window between its busy ones."""
+    edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    return [(g0, g1) for g0, g1 in zip(edges[0::2], edges[1::2]) if g1 > g0]
+
+
 def reduce_trace(events: list[tuple[str, bool, int, int]], window: str = "window") -> dict | None:
     """Reduce profiler events (name, on the device, start ns, end ns) to the
     traced window's busy seconds, its length, each device operation's total
     seconds and count, and the idle gaps' seconds by the harness span the
     host was in. Device events outside the window are clipped to it.
     Returns None when the window span is missing or no device event ran."""
-    wins = [(s, e) for name, dev, s, e in events if not dev and name == window]
-    if not wins:
+    win = _window(events, window)
+    if win is None:
         return None
-    w0, w1 = min(s for s, _ in wins), max(e for _, e in wins)
-    dev_ev = [(n, max(s, w0), min(e, w1)) for n, dev, s, e in events
-              if dev and n not in SPANS and n != window and e > w0 and s < w1]
+    w0, w1 = win
+    dev_ev = _device_ops(events, w0, w1, window)
     if not dev_ev:
         return None
     ops: dict[str, list] = {}
@@ -197,10 +239,7 @@ def reduce_trace(events: list[tuple[str, bool, int, int]], window: str = "window
     busy = _union([(s, e) for _, s, e in dev_ev])
     spans = sorted((s, e, n) for n, dev, s, e in events if not dev and n in SPANS)
     gaps: dict[str, float] = {}
-    edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    for g0, g1 in zip(edges[0::2], edges[1::2]):
-        if g1 <= g0:
-            continue
+    for g0, g1 in _idle(busy, w0, w1):
         mid = (g0 + g1) // 2
         inner = [(s, n) for s, e, n in spans if s <= mid < e]
         name = max(inner)[1] if inner else "harness"
@@ -211,6 +250,32 @@ def reduce_trace(events: list[tuple[str, bool, int, int]], window: str = "window
         "ops": ops,
         "gaps": gaps,
     }
+
+
+def split_gaps(events: list[tuple[str, bool, int, int]], window: str = "window") -> dict[str, float]:
+    """The idle seconds of the traced window apportioned over time: each idle
+    interval is cut where a span of the harness or of the program opens or
+    closes, and each piece goes to the innermost span the host was in
+    ("harness" in none). `reduce_trace` names a whole gap by the span at its
+    middle, which hands a gap that crosses from the client's code into the
+    program's to one of them."""
+    win = _window(events, window)
+    if win is None:
+        return {}
+    w0, w1 = win
+    busy = _union([(s, e) for _, s, e in _device_ops(events, w0, w1, window)])
+    spans = sorted((s, e, n) for n, dev, s, e in events
+                   if not dev and (n in SPANS or n.startswith(PROGRAM_SPAN)))
+    out: dict[str, float] = {}
+    for g0, g1 in _idle(busy, w0, w1):
+        near = [(s, e, n) for s, e, n in spans if s < g1 and e > g0]
+        cuts = sorted({g0, g1} | {x for s, e, _ in near for x in (s, e) if g0 < x < g1})
+        for a, b in zip(cuts, cuts[1:]):
+            mid = (a + b) / 2
+            inner = [(s, n) for s, e, n in near if s <= mid < e]
+            name = max(inner)[1] if inner else "harness"
+            out[name] = out.get(name, 0.0) + (b - a) * 1e-9
+    return out
 
 
 def profiler_events(prof) -> list[tuple[str, bool, int, int]]:
@@ -248,6 +313,24 @@ def kernel_seconds(trace: dict | None, *needles: str) -> tuple[float, int]:
             t += s
             c += k
     return t, c
+
+
+def program_span_ms(ctx, name: str) -> float | None:
+    """Mean device milliseconds of the program's span `name` in the traced
+    window, or None where the window recorded none on a device."""
+    s = (ctx.program or {}).get("spans", {}).get(name)
+    if s is None or s["device_s"] is None or not s["count"]:
+        return None
+    return 1e3 * s["device_s"] / s["count"]
+
+
+def idle_under(ctx, *prefixes: str) -> float | None:
+    """Idle seconds of the traced window cut to the spans whose names start
+    with one of `prefixes` (`split_gaps`), or None where the program's spans
+    were not recorded."""
+    if ctx.program is None or not ctx.trace:
+        return None
+    return sum(v for k, v in ctx.trace["split_gaps"].items() if k.startswith(prefixes))
 
 
 def percentile(values, q: float) -> float:

@@ -1,7 +1,9 @@
 """grm_ms: the Gram stage of a refit (triangle, epilogue, centering), mean
-milliseconds by CUDA events around it in every refit of the window."""
+device milliseconds of the program's `gbm.grm` span over the traced
+window's refits (its two CUDA events on the stream)."""
+
+import harness
 
 
 def read(ctx):
-    t = ctx.stage_ms.get("grm")
-    return sum(t) / len(t) if t else None
+    return harness.program_span_ms(ctx, "gbm.grm")

@@ -1,7 +1,8 @@
-"""solve_ms: `gblup_solve_lower` of a refit, mean milliseconds by CUDA events
-around it in every refit of the window."""
+"""solve_ms: `gblup_solve_lower` of a refit, mean device milliseconds of the
+program's `gbm.solve` span over the traced window's refits."""
+
+import harness
 
 
 def read(ctx):
-    t = ctx.stage_ms.get("solve")
-    return sum(t) / len(t) if t else None
+    return harness.program_span_ms(ctx, "gbm.solve")

@@ -45,6 +45,7 @@ import torch
 
 from .precision import fp8_round, tf32 as _tf32
 
+MODELS = ("ridge", "gblup", "lasso")  # the models whose CV records this reference judges
 RIDGE_LAMBDAS = np.logspace(-4, 1, 12)
 FISTA_STEPS = 300
 METRICS = ("cor", "mad", "msd", "rmsd", "euc", "r²")
@@ -111,10 +112,12 @@ def _fista(Zw, ywc, n_t, lambdas, step, low):
 
 
 def solve(X: torch.Tensor, y: np.ndarray, seed: int, n_replications: int, n_folds: int,
-          models, control: bool = False) -> dict:
+          models, control: bool = False, config: dict | None = None) -> dict:
     """Every fold's solutions: {(replication, fold, model): {"train": mask,
     "grid": (L,), "crit": (L,) on the criterion's log scale, "preds": (L, n)}},
-    float64 (the control: the module docstring)."""
+    float64 (the control: the module docstring). `config`, the cell's
+    configuration, is what every reference is handed (a chain's length, say);
+    these models need nothing of it."""
     dt = torch.float32 if control else torch.float64
     dev = X.device
     n = X.shape[0]

@@ -7,7 +7,11 @@ set-up, and its own fold seed, as a breeder runs CV trait by trait on one
 genotyped population. The program caches the panel and its Gram on the
 device after the first call, so the warm-up pays them.
 
-Config keys: `n_entries`, `n_loci`, `models`, `n_replications`, `n_folds`.
+Config keys: `n_entries`, `n_loci`, `models` (any of `cvbulk_batched`'s),
+`n_replications`, `n_folds`, and for the Bayesian models, where given, the
+chain's `mcmc_n_iter` and `mcmc_n_burnin` (without them the program's own).
+Each model's records are compared with the plain reference under
+`reference/` that names the model in its `MODELS` (`harness.references`).
 Traffic keys: `warmup_calls`, `trace_calls`, `min_call_s` (sizes the traits
 made in set-up: a window that outruns them reuses traits), `check_calls`
 (calls of the window compared with the reference, drawn from the seed),
@@ -23,6 +27,8 @@ from types import SimpleNamespace
 import numpy as np
 
 import harness
+
+CHAIN_KEYS = ("mcmc_n_iter", "mcmc_n_burnin")  # configuration keys passed on to cvbulk_batched as given
 
 
 def _panel(freq: np.ndarray):
@@ -67,7 +73,7 @@ def setup(ctx) -> None:
         X=X, traits=traits, genomes=genomes, phenomes=[phenomes(y) for y in traits], cap=cap,
         fold_seeds=[harness.subseed(ctx.seed, 2, i) for i in range(calls)], batched=batched,
         kw=dict(models=tuple(cfg["models"]), n_replications=cfg["n_replications"], n_folds=cfg["n_folds"],
-                store_effects=False, device=dev),
+                store_effects=False, device=dev, **{k: cfg[k] for k in CHAIN_KEYS if k in cfg}),
         fits=len(cfg["models"]) * cfg["n_replications"] * cfg["n_folds"], results=[])
     ctx.marks.append(("inputs", time.perf_counter()))
     for j in range(tr["warmup_calls"]):  # the first call uploads the panel and makes its Gram
@@ -124,12 +130,17 @@ def release(ctx) -> None:
 
 
 def records(cvs) -> list[dict]:
-    """The program's CV records in the reference's terms (rows by entry name)."""
+    """The program's CV records in the reference's terms (rows by entry name;
+    `lam` None where the model chose no λ, as a Gibbs chain)."""
     def rows(entries):
         return np.array(sorted(int(e[1:]) for e in entries), dtype=np.int64)
 
+    def lam(cv):
+        v = cv.fit.extras.get("lambda")
+        return None if v is None else float(v)
+
     return [{"rep": cv.replication, "fold": cv.fold, "model": cv.fit.model, "train": rows(cv.fit.entries),
-             "val": rows(cv.validation_entries), "lam": float(cv.fit.extras["lambda"]),
+             "val": rows(cv.validation_entries), "lam": lam(cv),
              "pred_train": np.asarray(cv.fit.y_pred, dtype=np.float64),
              "pred_val": np.asarray(cv.y_pred, dtype=np.float64), "y_val": np.asarray(cv.y_true),
              "metrics_val": cv.metrics, "metrics_train": cv.fit.metrics} for cv in cvs]
@@ -145,17 +156,44 @@ def _checked_calls(ctx) -> list[tuple[int, list]]:
 
 
 def _readings(ctx, control: bool) -> dict:
-    from reference import cv as ref
-
+    """Each number of the checked calls: the worst over the calls, or the
+    mean of a number its reference pools. The records of each reference's
+    models go to that reference; a configured model that no reference holds
+    counts its records, or 1 where it has none, under `records_differ`."""
     st, cfg = ctx.state, ctx.config
+    refs = harness.references(cfg["models"])
+    groups: dict = {}
+    for m in cfg["models"]:
+        if m in refs:
+            groups.setdefault(refs[m], []).append(m)
+    pooled = {k for ref in groups for k in ref.POOLED}
     per_call: dict[str, list[float]] = {}
     for i, cvs in _checked_calls(ctx):
-        args = (st.X, st.traits[i], st.fold_seeds[i], cfg["n_replications"], cfg["n_folds"], cfg["models"])
-        sol = ref.solve(*args)
-        recs = ref.records_of_control(ref.solve(*args, control=True), st.traits[i]) if control else records(cvs)
-        for k, v in ref.compare(recs, sol, st.traits[i]).items():
+        y = st.traits[i]
+        recs = records(cvs)
+        nums = {"records_differ": 0.0}
+        for ref, models in groups.items():
+            args = (st.X, y, st.fold_seeds[i], cfg["n_replications"], cfg["n_folds"], models)
+            sol = ref.solve(*args, config=cfg)
+            mine = (ref.records_of_control(ref.solve(*args, control=True, config=cfg), y) if control
+                    else [r for r in recs if r["model"] in models])
+            for k, v in ref.compare(mine, sol, y).items():
+                if k == "records_differ":
+                    nums[k] += v
+                else:
+                    nums[k] = _worst([nums[k], v]) if k in nums else v
+        for m in cfg["models"]:
+            if m not in refs:
+                nums["records_differ"] += max(1, sum(r["model"] == m for r in recs))
+        nums["records_differ"] += sum(r["model"] not in cfg["models"] for r in recs)
+        for k, v in nums.items():
             per_call.setdefault(k, []).append(v)
-    return {k: (sum(v) / len(v) if k in ref.POOLED else max(v)) for k, v in per_call.items()}
+    return {k: (sum(v) / len(v) if k in pooled else _worst(v)) for k, v in per_call.items()}
+
+
+def _worst(values) -> float:
+    """The largest of the values, or NaN where one is NaN (`max` may pass one over)."""
+    return float("nan") if any(math.isnan(v) for v in values) else max(values)
 
 
 def check(ctx) -> dict:

@@ -1,14 +1,20 @@
-"""Route `gblup_refit`: a closed loop of one client refitting GBLUP.
+"""Route `gblup_refit`: one client refitting GBLUP.
 
 Each request is a new training set: the panel of request i is panel
 i mod R of the R made in set-up, its phenotypes are vector i, and the refit
 is the program's Gram (`gram_dosage_lower`, K1, for int8 dosages;
 `gram_panel`, K2, for bf16 frequencies), then `gblup_solve_lower`
-(cuSOLVER), then the GEBVs read back to the host. The client issues the
-next request when the GEBVs are on the host. Every input is made on the
-device from the seed in set-up; nothing is made on the host in the window.
+(cuSOLVER), then the GEBVs read back to the host. With `ahead` 0 (the
+default) the loop is closed: the client issues the next request when the
+GEBVs are on the host. With `ahead` A > 0 the client queues its refits: it
+issues request i, then waits for the GEBVs of request i - A, so the card
+never waits on the host's issue; when the window's time is up it issues
+nothing more, waits for every GEBV it asked for, and only then reads the
+clock. Every input is made on the device from the seed in set-up; nothing is
+made on the host in the window.
 
-Traffic keys: `panel` ("int8" or "bf16"), `panels` (R), `warmup_refits`,
+Traffic keys: `panel` ("int8" or "bf16"), `panels` (R), `ahead` (A, 0 if
+absent), `warmup_refits`,
 `trace_refits`, `min_refit_s` (sizes the phenotype rows; set under the
 least time of the Gram kernel alone, so no window can outrun them: one that
 does is an error),
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import math
 import time
+from collections import deque
 from types import SimpleNamespace
 
 import harness
@@ -78,7 +85,7 @@ def setup(ctx) -> None:
     out = torch.empty((rows, n), dtype=torch.float32, pin_memory=dev.type == "cuda")
     ctx.state = st = SimpleNamespace(
         n=n, p=p, ploidy=ploidy if tr["panel"] == "int8" else None, lam=cfg["lambda_per_locus"] * p,
-        R=R, cap=cap, T=T, panels=panels, Y=Y, out=out, gram=gram, solve=gblup_solve_lower)
+        R=R, cap=cap, T=T, sent=deque(), panels=panels, Y=Y, out=out, gram=gram, solve=gblup_solve_lower)
     ctx.marks.append(("inputs", time.perf_counter()))
     for j in range(W):  # every panel through the whole refit: cuSOLVER's first call, the allocator
         _refit(ctx, st, cap + T + j)
@@ -86,50 +93,63 @@ def setup(ctx) -> None:
     ctx.marks.append(("warm-up", time.perf_counter()))
 
 
-def _refit(ctx, st, row: int, events=None) -> None:
+def _refit(ctx, st, row: int, wait: bool = True) -> None:
     with ctx.span("grm"):
-        if events:
-            events[0].record()
         K = st.gram(st.panels[row % st.R])
-        if events:
-            events[1].record()
     with ctx.span("solve"):
         g = st.solve(K, st.Y[row], st.lam)
-        if events:
-            events[2].record()
     with ctx.span("readback"):
-        st.out[row].copy_(g)
+        st.out[row].copy_(g, non_blocking=not wait)
+
+
+def _issue(ctx, st, row: int):
+    """Issue refit `row` without waiting for it; returns a wait for its
+    GEBVs on the host."""
+    _refit(ctx, st, row, wait=False)
+    if ctx.device.type != "cuda":
+        return lambda: None
+    import torch
+
+    done = torch.cuda.Event()
+    done.record()
+    return done.synchronize
 
 
 def window(ctx) -> None:
     """Refits until `--seconds` have passed since the first one started; the
-    window ends with the last refit's GEBVs on the host."""
-    import torch
-
+    window ends with the last refit's GEBVs on the host. Every refit issued
+    counts, over the time until all of their GEBVs are on the host."""
     st = ctx.state
-    timed = ctx.traced and ctx.device.type == "cuda"
-    lat, events = [], []
+    ahead = ctx.traffic.get("ahead", 0)
+    lat, sent = [], deque()
     t_first = time.perf_counter()
     ctx.setup_s = t_first - ctx.t0
     deadline = t_first + ctx.seconds
     k, t_done = 0, t_first
-    while t_done < deadline:
+    while (t_done if not ahead else time.perf_counter()) < deadline:
         if k == st.cap:
             raise RuntimeError(f"the window outran its {st.cap} phenotype rows: min_refit_s is too long")
         t_issue = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else None
-        _refit(ctx, st, k, ev)
-        t_done = time.perf_counter()
-        lat.append(t_done - t_issue)
-        if ev:
-            events.append(ev)
+        if not ahead:
+            _refit(ctx, st, k)
+            t_done = time.perf_counter()
+            lat.append(t_done - t_issue)
+        else:
+            sent.append((t_issue, _issue(ctx, st, k)))
+            while len(sent) > ahead:
+                lat.append(_wait(sent.popleft()))
         k += 1
+    while sent:
+        lat.append(_wait(sent.popleft()))
+    t_done = time.perf_counter() if ahead else t_done
     ctx.window = {"seconds": t_done - t_first, "requests": k, "latencies_s": lat,
                   "work": float(k) * st.n * st.p}
-    if events:
-        torch.cuda.synchronize(ctx.device)
-        ctx.stage_ms["grm"] = [a.elapsed_time(b) for a, b, _ in events]
-        ctx.stage_ms["solve"] = [b.elapsed_time(c) for _, b, c in events]
+
+
+def _wait(sent) -> float:
+    t_issue, wait = sent
+    wait()
+    return time.perf_counter() - t_issue
 
 
 def trace_count(ctx) -> int:
@@ -137,8 +157,18 @@ def trace_count(ctx) -> int:
 
 
 def traced_request(ctx, j: int) -> None:
+    """Refit `cap + j`, queued as the window queues them: the first (the
+    profiler's start) and the last are waited for, and with `ahead` every
+    one `ahead` places before the newest."""
+    st, ahead = ctx.state, ctx.traffic.get("ahead", 0)
     with ctx.span("issue"):
-        _refit(ctx, ctx.state, ctx.state.cap + j)
+        if not ahead:
+            _refit(ctx, st, st.cap + j)
+            return
+        st.sent.append((0.0, _issue(ctx, st, st.cap + j)))
+    last = j == 0 or j == st.T - 1
+    while st.sent and (last or len(st.sent) > ahead):
+        _wait(st.sent.popleft())
 
 
 def release(ctx) -> None:

@@ -11,7 +11,8 @@ readers (`metrics/<name>.py`) are found by name.
 A run: set-up (inputs made on the device from the seed, the route's own
 shapes warmed up), then a window of `--seconds` of requests, then, with
 `--trace 1`, a short window of the same requests under `torch.profiler`
-(its first request, which pays the profiler's start, outside the window),
+with the program's own spans and counters recorded (`utils/logging.py`;
+its first request, which pays the profiler's start, outside the window),
 then the check of the window's answers against the plain reference in
 `reference/`. Standard error gets the card's clocks and power before and
 after the window, the kernel launches of the window, and, last, every
@@ -34,6 +35,7 @@ T0 = time.perf_counter()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+from contextlib import nullcontext  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 BENCH = Path(__file__).resolve().parent
@@ -150,26 +152,48 @@ def main(argv=None, *, require_chip: bool = True, device: str = "cuda", config_o
     return 0
 
 
+def program_tracing():
+    """The program's `utils/logging` module where it has `tracing`, `reset`
+    and `collect`; None otherwise (a traced run then reads no program span)."""
+    try:
+        from genomicbreedingmodels_tpu_torch.utils import logging as tr
+    except ImportError:
+        return None
+    return tr if all(hasattr(tr, f) for f in ("tracing", "reset", "collect")) else None
+
+
 def traced_window(ctx, route, cuda: bool):
     """The route's traced requests under `torch.profiler` (the device's
-    kernels and the harness's spans), reduced to busy time, operations and
-    idle gaps. Runs after the measured window: a process that has traced the
-    card runs host-bound work slower afterwards."""
+    kernels, the harness's spans and the program's) with the program's
+    tracing on, reduced to busy time, operations and idle gaps; the
+    program's spans and counters of the window's requests go to
+    `ctx.program`. Runs after the measured window: a process that has traced
+    the card runs host-bound work slower afterwards."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    tr = program_tracing()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     n = route.trace_count(ctx)
-    with profile(activities=acts) as prof:
+    with tr.tracing() if tr else nullcontext(), profile(activities=acts) as prof:
         ctx.tracing = True
         try:
             route.traced_request(ctx, 0)  # the profiler's own start-up falls here, outside the window
+            if tr:
+                tr.reset()  # the program's spans and counters of the window's requests alone
             with record_function("window"):
                 for j in range(1, n):
                     route.traced_request(ctx, j)
         finally:
             ctx.tracing = False
+    ctx.traced_requests = n - 1
+    if tr:
+        ctx.program = tr.collect()
+        tr.reset()
     t = time.perf_counter()
-    trace = harness.reduce_trace(harness.profiler_events(prof))
+    events = harness.profiler_events(prof)
+    trace = harness.reduce_trace(events)
+    if trace is not None:
+        trace["split_gaps"] = harness.split_gaps(events)
     harness.note(f"# traced {n - 1} requests; reduced the trace in {time.perf_counter() - t:.3f} s")
     return trace
 

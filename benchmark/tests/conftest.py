@@ -3,6 +3,7 @@ from the root of a checkout (CPU; tests marked `cuda` skip without a card).
 They put the benchmark's folder and the checkout's root on `sys.path`, as
 `benchmark/run.py` does."""
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -14,20 +15,16 @@ for p in (str(BENCH.parent), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# Tiny sizes of each cell for CPU runs: (config overrides, traffic overrides).
-TINY = {
-    "gblup-refit-int8": ({"n_entries": 96, "n_loci": 1024},
-                         {"n_causal": 16, "trace_refits": 5, "min_refit_s": 1e-4}),
-    "gblup-refit-freq": ({"n_entries": 96, "n_loci": 1024},
-                         {"n_causal": 16, "trace_refits": 5, "min_refit_s": 1e-4}),
-    "cv-linear": ({"n_entries": 120, "n_loci": 600},
-                  {"trace_calls": 2, "min_call_s": 0.2, "warmup_calls": 1, "check_calls": 1}),
-}
+# Tiny sizes of each cell for CPU runs, {workload: (config overrides,
+# traffic overrides)}, from `tiny/<workload>.json` ({"config": ..., "traffic": ...}):
+# a cell's tests find its file by the cell's name.
+TINY = {f.stem: (d["config"], d["traffic"])
+        for f in sorted((BENCH / "tests" / "tiny").glob("*.json")) for d in [json.loads(f.read_text())]}
 
 
-def run_tiny(workload: str, seed: int = 7, seconds: float = 0.3, trace: int = 0):
+def run_tiny(workload: str, seed: int = 7, seconds: float = 0.3, trace: int = 0, config=None, traffic=None):
     """(exit code, last stdout line as a dict or None) of a CPU run of a cell
-    at its tiny size, in this process."""
+    at its tiny size, in this process; `config` and `traffic` override more."""
     import io
     from contextlib import redirect_stdout
 
@@ -37,11 +34,10 @@ def run_tiny(workload: str, seed: int = 7, seconds: float = 0.3, trace: int = 0)
     with redirect_stdout(buf):
         rc = run.main(["--workload", workload, "--seed", str(seed), "--seconds", str(seconds),
                        "--trace", str(trace)], require_chip=False, device="cpu",
-                      config_overrides=TINY[workload][0], traffic_overrides=TINY[workload][1],
+                      config_overrides={**TINY[workload][0], **(config or {})},
+                      traffic_overrides={**TINY[workload][1], **(traffic or {})},
                       t0=time.perf_counter())
     lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
-    import json
-
     return rc, (json.loads(lines[-1]) if lines else None)
 
 

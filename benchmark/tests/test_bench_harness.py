@@ -23,12 +23,13 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_workload_resolves_by_name(workload):
     cell, config, traffic = harness.resolve_cell(MANIFEST, workload)
-    assert config["name"] == cell["config"] and config["reduced"] == []
+    entry = {c["name"]: c for c in MANIFEST["configs"]}[cell["config"]]
+    assert config["name"] == cell["config"] and config["reduced"] == entry["reduced"]
     route = harness.route_module(traffic)
     for fn in ("setup", "window", "trace_count", "traced_request", "release", "check", "control"):
         assert callable(getattr(route, fn))
-    assert set(traffic["limits"]) <= {"gebv_gap", "records_differ", "pred_gap", "lasso_pred_gap",
-                                      "lasso_choice_regret", "metric_gap"}
+    assert traffic["limits"] and all(NAME.match(k) and v >= 0 for k, v in traffic["limits"].items())
+    assert workload in TINY, f"benchmark/tests/tiny/{workload}.json holds the cell's sizes for CPU runs"
     reported = harness.cell_metrics(MANIFEST, workload, False)
     names = {m["name"] for m in reported}
     assert "setup_s" in names and len(names) >= 2
@@ -117,6 +118,10 @@ def test_traced_result_line(workload, monkeypatch):
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert all(len(v) <= 10 for v in res["breakdown"].values())
     assert res["metrics"] and set(res["metrics"]) <= {m["name"] for m in MANIFEST["per_layer"]}
+    # the program's spans and counters reached the readers (no device times on the CPU)
+    wants = {"gblup_refit": {"gblup_program_idle_ms", "k2_clustered_per_refit"}, "cv_sweep": {"cv_lasso_idle_pct"}}
+    traffic = harness.resolve_cell(MANIFEST, workload)[2]
+    assert wants[traffic["route"]] <= set(res["metrics"])
 
 
 def test_reduce_trace_busy_gaps_and_clipping():
@@ -129,6 +134,59 @@ def test_reduce_trace_busy_gaps_and_clipping():
     assert t["gaps"] == {"grm": pytest.approx(10e-9), "solve": pytest.approx(20e-9)}
     assert harness.kernel_seconds(t, "k") == (pytest.approx(30e-9), 2)
     assert harness.reduce_trace([("window", False, 0, 10)]) is None
+
+
+def test_split_gaps_cut_at_program_spans():
+    """The program's host spans cut the idle gaps where they open and close,
+    while the reduction's busy time, operations and midpoint gaps stay as
+    without them, and no `gbm.` event counts as a device operation."""
+    base = [("window", False, 100, 200), ("grm", False, 100, 150), ("solve", False, 150, 190),
+            ("k", True, 90, 120), ("k", True, 130, 140), ("m", True, 160, 205)]
+    prog = [("gbm.grm", False, 102, 148), ("gbm.grm.kernel", False, 104, 130), ("gbm.solve", False, 152, 188),
+            ("gbm.grm", True, 103, 149)]  # a device copy of the span's annotation
+    old = harness.reduce_trace(base)
+    assert harness.reduce_trace(base + prog) == old and "gbm.grm" not in old["ops"]
+    assert harness.split_gaps(base) == {"grm": pytest.approx(20e-9), "solve": pytest.approx(10e-9)}
+    # the gap 140-160 crosses gbm.grm (to 148), grm (to 150), solve (to 152) and gbm.solve
+    assert harness.split_gaps(base + prog) == {
+        "gbm.grm.kernel": pytest.approx(10e-9), "gbm.grm": pytest.approx(8e-9), "grm": pytest.approx(2e-9),
+        "solve": pytest.approx(2e-9), "gbm.solve": pytest.approx(8e-9)}
+    assert sum(harness.split_gaps(base + prog).values()) == pytest.approx(sum(old["gaps"].values()))
+    assert harness.split_gaps([("k", True, 0, 5)]) == {}
+
+
+def _span(count, device_s):
+    return {"count": count, "host_s": 1.0, "self_host_s": 0.5, "device_s": device_s, "parent": None}
+
+
+@pytest.mark.parametrize("program", [True, False])
+def test_program_span_readers(program):
+    """The readers of the program's spans and counters on a traced refit
+    window and a traced CV window; none reads anything without them."""
+    from types import SimpleNamespace
+
+    refit = SimpleNamespace(
+        traffic={"route": "gblup_refit", "panel": "bf16"}, config={}, traced_requests=4,
+        trace={"window_s": 0.2, "split_gaps": {"gbm.grm": 1e-3, "gbm.solve.potrf": 5e-4, "issue": 2e-3}},
+        program={"spans": {"gbm.grm": _span(4, 0.048), "gbm.grm.kernel": _span(4, 0.040),
+                           "gbm.solve": _span(4, 0.044), "gbm.solve.potrf": _span(4, 0.036)},
+                 "counters": {"gbm.grm.k2.clustered": 4}} if program else None)
+    cv = SimpleNamespace(
+        traffic={"route": "cv_sweep"}, config={"models": ["ridge", "gblup", "lasso"]}, traced_requests=2,
+        trace={"window_s": 4.0, "split_gaps": {"gbm.cv.lasso.fista": 1.0, "gbm.cv.lasso_solve": 0.2,
+                                               "gbm.cv.eigh": 0.1, "cv_call": 0.05}},
+        program={"spans": {"gbm.cv.eigh": _span(4, 1.5)}, "counters": {}} if program else None)
+    want_refit = {"grm_ms": 12.0, "solve_ms": 11.0, "grm_passes_ms": 2.0, "potrf_ms": 9.0,
+                  "gblup_program_idle_ms": 0.375, "k2_clustered_per_refit": 1.0}
+    want_cv = {"cv_eigh_s": 0.75, "cv_lasso_idle_pct": 30.0}
+    for ctx, want in ((refit, want_refit), (cv, want_cv)):
+        for name, value in want.items():
+            got = harness.metric_reader(name)(ctx)
+            assert got == (pytest.approx(value) if program else None), name
+    for name in want_refit:  # each reads its own route's cells only
+        assert harness.metric_reader(name)(cv) is None
+    for name in want_cv:
+        assert harness.metric_reader(name)(refit) is None
 
 
 def test_no_result_without_a_card():
