@@ -12,6 +12,11 @@ Config keys: `n_entries`, `n_loci`, `models` (any of `cvbulk_batched`'s),
 chain's `mcmc_n_iter` and `mcmc_n_burnin` (without them the program's own).
 Each model's records are compared with the plain reference under
 `reference/` that names the model in its `MODELS` (`harness.references`).
+A reference that declares `CHAIN` judges a Gibbs chain by its states: for
+each checked call the route re-runs the call with that model alone, the
+program's chain driven in one-sweep segments (`_rerun`), and hands the
+reference the states it conditions on and the records the program's own
+states after the replayed sweeps (`reference/__init__.py`).
 Traffic keys: `warmup_calls`, `trace_calls`, `min_call_s` (sizes the traits
 made in set-up: a window that outruns them reuses traits), `check_calls`
 (calls of the window compared with the reference, drawn from the seed),
@@ -21,6 +26,7 @@ made in set-up: a window that outruns them reuses traits), `check_calls`
 from __future__ import annotations
 
 import math
+import struct
 import time
 from types import SimpleNamespace
 
@@ -29,6 +35,10 @@ import numpy as np
 import harness
 
 CHAIN_KEYS = ("mcmc_n_iter", "mcmc_n_burnin")  # configuration keys passed on to cvbulk_batched as given
+# The program's chain state, positionally (models/bayesian.py:_initial_state),
+# and the fields of it a chain reference reads.
+STATE_FIELDS = ("b", "r", "s2", "sig_e2", "mu", "pi", "scale", "gens", "acc_b", "acc_mu", "acc_n", "z", "gam")
+HANDED = ("b", "r", "s2", "sig_e2", "mu", "pi", "gens")
 
 
 def _panel(freq: np.ndarray):
@@ -74,7 +84,7 @@ def setup(ctx) -> None:
         fold_seeds=[harness.subseed(ctx.seed, 2, i) for i in range(calls)], batched=batched,
         kw=dict(models=tuple(cfg["models"]), n_replications=cfg["n_replications"], n_folds=cfg["n_folds"],
                 store_effects=False, device=dev, **{k: cfg[k] for k in CHAIN_KEYS if k in cfg}),
-        fits=len(cfg["models"]) * cfg["n_replications"] * cfg["n_folds"], results=[])
+        fits=len(cfg["models"]) * cfg["n_replications"] * cfg["n_folds"], results=[], chains={})
     ctx.marks.append(("inputs", time.perf_counter()))
     for j in range(tr["warmup_calls"]):  # the first call uploads the panel and makes its Gram
         _call(ctx, st, cap + tr["trace_calls"] + j)
@@ -155,11 +165,132 @@ def _checked_calls(ctx) -> list[tuple[int, list]]:
     return [done[j] for j in sorted(pick)]
 
 
+def _picked_sweeps(ctx, i: int, burnin: int, n_iter: int) -> set[int]:
+    """The sweeps of call i's chain that the reference replays: the first,
+    which the reference starts from its own initial state, and two drawn
+    from the seed, one in burn-in and one after it."""
+    rng = np.random.default_rng(harness.subseed(ctx.seed, 4, i))
+    picks = {0, int(rng.integers(0, burnin))} if burnin > 0 else {0}
+    return picks | ({int(rng.integers(burnin, n_iter))} if n_iter > burnin else set())
+
+
+def _named(state) -> dict:
+    return {k: state[STATE_FIELDS.index(k)] for k in HANDED}
+
+
+def _rerun(ctx, i: int, model: str):
+    """Call i re-run with `model` alone, the program's `_gibbs_chain` driven
+    in one-sweep segments through `iters`, `state_in` and `return_state`
+    (one long run and chained segments give the same chain, bit for bit).
+    Returns (the chain's record, the re-run's records), or None where the
+    chain cannot be reached: the private name gone, or not called exactly
+    once by the call."""
+    import importlib
+    import inspect
+
+    import torch
+
+    st, cfg = ctx.state, ctx.config
+    try:
+        bayesian = importlib.import_module("genomicbreedingmodels_tpu_torch.models.bayesian")
+        inner = bayesian._gibbs_chain
+        sig = inspect.signature(inner)
+    except (ImportError, AttributeError, TypeError, ValueError):
+        return None
+    if not {"n_iter", "n_burnin", "iters", "state_in", "return_state"} <= set(sig.parameters):
+        return None
+    runs = []
+
+    def segmented(*args, **kw):
+        ba = sig.bind(*args, **kw)
+        ba.apply_defaults()
+        a = dict(ba.arguments)
+        iters = list(range(int(a["n_iter"])) if a["iters"] is None else a["iters"])
+        if not iters:
+            return inner(*args, **kw)
+        burnin = int(cfg.get("mcmc_n_burnin", a["n_burnin"]))
+        picks = _picked_sweeps(ctx, i, burnin, int(cfg.get("mcmc_n_iter", a["n_iter"])))
+        rec = {"n_sweeps": 0, "steps": [], "post_b": [], "post_mu": []}
+        state = a["state_in"]
+        if state is None:  # the initial state, generator states with it
+            state = inner(**{**a, "iters": range(0), "return_state": True})[3]
+        traces = []
+        for t in iters:
+            before = state
+            out = inner(**{**a, "iters": range(t, t + 1), "state_in": before, "return_state": True})
+            state = out[3]
+            traces.append(out[2])
+            rec["n_sweeps"] += 1
+            if t in picks:
+                rec["steps"].append({"t": t, "before": _named(before), "after": _named(state)})
+            if t >= burnin:
+                rec["post_b"].append(state[0])
+                rec["post_mu"].append(state[4])
+        b = state[0]
+        rec["post_b"] = torch.stack(rec["post_b"]) if rec["post_b"] else b.new_zeros((0, *b.shape))
+        rec["post_mu"] = torch.stack(rec["post_mu"]) if rec["post_mu"] else b.new_zeros((0, b.shape[0]))
+        runs.append(rec)
+        res = (out[0], out[1], tuple(torch.cat([tr[j] for tr in traces]) for j in range(len(traces[0]))))
+        return res + (state,) if a["return_state"] else res
+
+    bayesian._gibbs_chain = segmented
+    try:
+        cvs, _ = st.batched.cvbulk_batched(st.genomes, st.phenomes[i], seed=st.fold_seeds[i],
+                                           **{**st.kw, "models": (model,)})
+    finally:
+        bayesian._gibbs_chain = inner
+        st.batched._PANEL_CACHE.clear()
+    return (runs[0], records(cvs)) if len(runs) == 1 else None
+
+
+def _bits(v):
+    """A value's bits, for an exact comparison (NaN equal to itself)."""
+    if isinstance(v, dict):
+        return tuple((k, _bits(x)) for k, x in v.items())
+    if isinstance(v, np.ndarray):
+        return v.dtype.str, v.shape, v.tobytes()
+    if isinstance(v, float):
+        return struct.pack("<d", v)
+    return v
+
+
+def _differ(mine: list[dict], again: list[dict]) -> int:
+    """Records of `mine` and `again` that are not the same bit for bit, or
+    that one of them lacks."""
+    a = {(r["rep"], r["fold"], r["model"]): _bits(r) for r in mine}
+    b = {(r["rep"], r["fold"], r["model"]): _bits(r) for r in again}
+    return len(set(a) ^ set(b)) + sum(a[k] != b[k] for k in set(a) & set(b)) + len(mine) - len(a)
+
+
+def _chains(ctx, i: int, models, mine: list[dict]):
+    """({model: what its reference conditions on}, {model: the program's
+    states after the replayed sweeps}, {rerun_differs, chain_unreachable})
+    of call i, its re-runs kept for the control."""
+    cond, outs, nums = {}, {}, {"rerun_differs": 0.0, "chain_unreachable": 0.0}
+    for m in models:
+        key = (i, m)
+        if key not in ctx.state.chains:
+            ctx.state.chains[key] = _rerun(ctx, i, m)
+        got = ctx.state.chains[key]
+        if got is None:
+            cond[m] = None
+            nums["chain_unreachable"] += 1
+            continue
+        rec, again = got
+        nums["rerun_differs"] += _differ([r for r in mine if r["model"] == m], again)
+        cond[m] = {"steps": [{"t": s["t"], "before": s["before"]} for s in rec["steps"]],
+                   "post_b": rec["post_b"], "post_mu": rec["post_mu"]}
+        outs[m] = {"n_sweeps": rec["n_sweeps"], "steps": [{"t": s["t"], "after": s["after"]} for s in rec["steps"]]}
+    return cond, outs, nums
+
+
 def _readings(ctx, control: bool) -> dict:
     """Each number of the checked calls: the worst over the calls, or the
     mean of a number its reference pools. The records of each reference's
     models go to that reference; a configured model that no reference holds
-    counts its records, or 1 where it has none, under `records_differ`."""
+    counts its records, or 1 where it has none, under `records_differ`. A
+    chain reference (`CHAIN`) also gets the chain's states (`_chains`), and
+    the call counts `rerun_differs` and `chain_unreachable`."""
     st, cfg = ctx.state, ctx.config
     refs = harness.references(cfg["models"])
     groups: dict = {}
@@ -174,9 +305,16 @@ def _readings(ctx, control: bool) -> dict:
         nums = {"records_differ": 0.0}
         for ref, models in groups.items():
             args = (st.X, y, st.fold_seeds[i], cfg["n_replications"], cfg["n_folds"], models)
-            sol = ref.solve(*args, config=cfg)
-            mine = (ref.records_of_control(ref.solve(*args, control=True, config=cfg), y) if control
-                    else [r for r in recs if r["model"] in models])
+            mine = [r for r in recs if r["model"] in models]
+            kw = {"config": cfg}
+            if getattr(ref, "CHAIN", False):
+                kw["chain"], outs, extra = _chains(ctx, i, models, mine)
+                for k, v in extra.items():
+                    nums[k] = nums.get(k, 0.0) + v
+                mine = [{**r, "chain": outs.get(r["model"])} for r in mine]
+            sol = ref.solve(*args, **kw)
+            if control:
+                mine = ref.records_of_control(ref.solve(*args, control=True, **kw), y)
             for k, v in ref.compare(mine, sol, y).items():
                 if k == "records_differ":
                     nums[k] += v

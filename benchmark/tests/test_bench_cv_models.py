@@ -42,6 +42,14 @@ def compare(records, solution, y):
 '''
 
 
+@pytest.fixture
+def bayesc_unheld(monkeypatch):
+    """`reference/bayes.py` set aside, so that no reference holds BayesC."""
+    from reference import bayes
+
+    monkeypatch.setattr(bayes, "MODELS", ())
+
+
 def _stub_reference(tmp_path, monkeypatch, gap: float, name: str):
     """A reference module `name` found beside `benchmark/reference/`'s, from a
     directory outside the benchmark."""
@@ -54,7 +62,7 @@ def _stub_reference(tmp_path, monkeypatch, gap: float, name: str):
 
 
 @pytest.mark.parametrize("gap", [0.1, 0.9])
-def test_bayesc_cell_is_judged_by_the_reference_that_names_it(gap, tmp_path, monkeypatch):
+def test_bayesc_cell_is_judged_by_the_reference_that_names_it(gap, tmp_path, monkeypatch, bayesc_unheld):
     stub = _stub_reference(tmp_path, monkeypatch, gap, f"stub_bayes_{int(gap * 10)}")
     rc, res = run_tiny("cv-linear", config=BAYESC, traffic={"limits": {"records_differ": 0, "stub_gap": 0.5}})
     assert rc == 0 and res is not None
@@ -65,7 +73,7 @@ def test_bayesc_cell_is_judged_by_the_reference_that_names_it(gap, tmp_path, mon
     assert stub().CONFIGS and all(c["mcmc_n_iter"] == 4 for c in stub().CONFIGS)  # handed the configuration
 
 
-def test_bayesc_cell_without_a_reference_is_not_correct():
+def test_bayesc_cell_without_a_reference_is_not_correct(bayesc_unheld):
     rc, res = run_tiny("cv-linear", config=BAYESC)
     assert rc == 0 and res is not None and "cv_fits_per_s" in res["metrics"]
     assert res["correct"] is False
@@ -73,7 +81,7 @@ def test_bayesc_cell_without_a_reference_is_not_correct():
     assert set(res["checks"]) == {"records_differ"}
 
 
-def test_chain_length_reaches_cvbulk_batched(monkeypatch):
+def test_chain_length_reaches_cvbulk_batched(monkeypatch, bayesc_unheld):
     from genomicbreedingmodels_tpu_torch.cv import batched
 
     seen = []
@@ -127,10 +135,11 @@ def test_cv_linear_numbers_are_the_single_reference_s(control):
 
 
 def test_references_are_found_by_the_models_they_name(tmp_path, monkeypatch):
+    from reference import bayes as ref_bayes
     from reference import cv as ref_cv
 
-    assert harness.references(["ridge", "gblup", "lasso", "bayesc"]) == {"ridge": ref_cv, "gblup": ref_cv,
-                                                                         "lasso": ref_cv}
+    assert harness.references(["ridge", "gblup", "lasso", "bayesc", "bayesa"]) == {
+        "ridge": ref_cv, "gblup": ref_cv, "lasso": ref_cv, "bayesc": ref_bayes}
     import reference
 
     (tmp_path / "stub_twice.py").write_text('MODELS = ("lasso",)\n')
